@@ -1,0 +1,205 @@
+"""The PyTorch port's decode slice against the JAX Pipeline, on the CPU.
+
+Same cu8 capture, same PipelineConfig, both sync modes: the packed rows of
+every live decode slot (meta word 6 = 1) must agree byte for byte, apart
+from the float of/df words, and the decoded frames must equal the JAX
+frames and the stimulus truth.  Also pins the q-ranked slot compaction
+under slot pressure on both backends.
+"""
+import threading
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import bench as B
+from vdlm2dec_tpu import pipeline as jpipe
+from vdlm2dec_tpu_torch import pipeline as tpipe
+from vdlm2dec_tpu_torch._tables import PipelineConfig, unpack_results
+
+# test workers share the CPU: one PyTorch thread each
+torch.set_num_threads(1)
+
+FS = 2_000_000
+INT_WORDS = [0, 1, 2, 3, 4, 5, 6]          # chan, t0, length, .., live
+
+
+@pytest.fixture(scope="module")
+def capture():
+    wide, freqs, fc, truth = B.make_capture(FS, 2, 1.0)
+    wide = wide[: len(wide) - len(wide) % 2000]
+    return B.to_u8(wide), freqs, fc, truth
+
+
+def _cfg_kw(freqs, fc, sync_impl, **kw):
+    return dict(freqs_hz=[float(f) for f in freqs], fs=FS, fc_hz=float(fc),
+                max_candidates=16, max_symbols=512, max_out=48,
+                sync_impl=sync_impl, **kw)
+
+
+def _pipes(freqs, fc, sync_impl, **kw):
+    kw = _cfg_kw(freqs, fc, sync_impl, **kw)
+    return (jpipe.Pipeline(jpipe.PipelineConfig(**kw)),
+            tpipe.Pipeline(PipelineConfig(**kw), device="cpu"))
+
+
+def _frames(bursts):
+    return sorted((b.channel, bytes(bytearray(f[1:-3])))
+                  for b in bursts for f in b.frames)
+
+
+def _assert_packed_match(jb, tb):
+    """Live rows identical (float words of/df to 1e-5: the metric they
+    come from agrees to the sync tolerance); a slot that is live on
+    neither side may differ, as a junk trigger whose threshold test sits
+    within the sync tolerance can flip."""
+    assert jb.shape == tb.shape
+    jm = jb[:, 2048:].copy().view(np.int32)
+    tm = tb[:, 2048:].copy().view(np.int32)
+    jl, tl = jm[:, 6] == 1, tm[:, 6] == 1
+    jkeys = {(int(r[0]), int(r[1])): i for i, r in enumerate(jm) if r[6]}
+    tkeys = {(int(r[0]), int(r[1])): i for i, r in enumerate(tm) if r[6]}
+    assert jkeys.keys() == tkeys.keys()
+    assert jl.sum() > 0
+    for key, i in jkeys.items():
+        k = tkeys[key]
+        np.testing.assert_array_equal(tb[k, :2048], jb[i, :2048])
+        np.testing.assert_array_equal(tm[k, INT_WORDS], jm[i, INT_WORDS])
+        np.testing.assert_allclose(tm[k, 7:9].view(np.float32),
+                                   jm[i, 7:9].view(np.float32),
+                                   rtol=1e-5, atol=1e-5)
+    # block counters: slots that differ can only be junk triggers
+    n_diff = int((jm[:, :2] != tm[:, :2]).any(axis=1).sum())
+    assert np.abs(jm[0, 9:] - tm[0, 9:]).max() <= n_diff
+
+
+@pytest.mark.parametrize("sync_impl", ["stream", "fused"])
+def test_decode_wideband_u8_matches_jax(capture, sync_impl):
+    raw, freqs, fc, truth = capture
+    jp, tp = _pipes(freqs, fc, sync_impl)
+    jb = np.asarray(jpipe._dispatch_fused(jp, raw, "cu8", 0, 0))
+    tb = tpipe.dispatch_fused(tp, raw, "cu8", 0, 0).numpy()
+    _assert_packed_match(jb, tb)
+    assert tp.channelizer._period_cursor == len(raw) // 2 // 2000
+    # the public entry point on a fresh pipeline: the same candidates
+    _, tp2 = _pipes(freqs, fc, sync_impl)
+    cands = tp2.decode_wideband_u8(raw)
+    want_cands = unpack_results(tb)
+    scalars = ("chan", "t0", "length", "nbrow", "nlbyte", "consumed",
+               "of", "df")
+    assert [[c[k] for k in scalars] for c in cands] == \
+        [[c[k] for k in scalars] for c in want_cands]
+    for c, w in zip(cands, want_cands):
+        np.testing.assert_array_equal(c["block"], w["block"])
+        np.testing.assert_array_equal(c["rs_counts"], w["rs_counts"])
+    got = tp2._finish(cands, 0)
+    want = jp._finish(jpipe.unpack_results(jb), 0)
+    assert _frames(got) == _frames(want) == sorted((c, b) for c, b, *_ in truth)
+
+
+@pytest.mark.parametrize("sync_impl", ["stream", "fused"])
+def test_stream_wideband_u8_matches_jax(capture, sync_impl):
+    raw, freqs, fc, truth = capture
+    jp, tp = _pipes(freqs, fc, sync_impl)
+    want = [b for bs in jp.stream_wideband_u8(raw, block_seconds=0.25)
+            for b in bs]
+    got = [b for bs in tp.stream_wideband_u8(raw, block_seconds=0.25)
+           for b in bs]
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert (g.channel, g.t0, g.length_bits, g.nbrow, g.nlbyte,
+                g.rs_counts) == (w.channel, w.t0, w.length_bits, w.nbrow,
+                                 w.nlbyte, w.rs_counts)
+        np.testing.assert_array_equal(g.block, w.block)
+        assert g.ppm == pytest.approx(w.ppm, rel=1e-4, abs=1e-3)
+    assert _frames(got) == _frames(want) == sorted((c, b) for c, b, *_ in truth)
+
+
+def test_abandoned_stream_stops_its_fetch_thread(capture):
+    """Closing the generator after its first block joins the
+    PipelinedDecoder's fetch thread: no thread outlives the stream."""
+    raw, freqs, fc, _truth = capture
+    _, tp = _pipes(freqs, fc, "stream")
+    before = set(threading.enumerate())
+    gen = tp.stream_wideband_u8(raw, block_seconds=0.25)
+    next(gen)
+    assert len(set(threading.enumerate()) - before) == 1
+    gen.close()
+    assert set(threading.enumerate()) - before == set()
+
+
+def test_unported_configs_raise():
+    kw = dict(freqs_hz=[136_975_000.0], fc_hz=136_900_000.0)
+    for extra in (dict(sync_impl="xla"), dict(compute="bf16"),
+                  dict(use_pallas=True), dict(filter_mode="fir"),
+                  dict(chan_impl="pfb"), dict(lo_wrap=False),
+                  dict(mesh=object()), dict(real_input=True)):
+        with pytest.raises(NotImplementedError):
+            tpipe.Pipeline(PipelineConfig(**kw, **extra), device="cpu")
+    pipe = tpipe.Pipeline(PipelineConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError):
+        pipe.decode_wideband_u8(np.zeros(8000, np.int16), fmt="cs16")
+
+
+# ---------------------------------------------------------------- slot pressure
+
+N_JUNK = 24          # junk triggers per channel, all earlier than any burst
+
+
+def _with_junk(find_triggers, xp):
+    """find_triggers plus N_JUNK slots per channel of junk triggers at
+    q = 3.99 (just under the 4.0 threshold, as noise triggers sit),
+    placed at even positions before the first real burst, so a
+    time-ordered compaction would hand them every slot."""
+    def wrapped(err, fr, max_candidates):
+        t0, of, df, valid, q = find_triggers(err, fr, max_candidates)
+        c = t0.shape[0]
+        jt = np.tile(152 + 2 * np.arange(N_JUNK), (c, 1))
+        if xp is torch:
+            new = (torch.as_tensor(jt, dtype=t0.dtype),
+                   torch.full((c, N_JUNK), 8.0), torch.zeros(c, N_JUNK),
+                   torch.ones(c, N_JUNK, dtype=torch.bool),
+                   torch.full((c, N_JUNK), 3.99))
+            cat = lambda a, b: torch.cat([a, b], dim=1)
+        else:
+            new = (jnp.asarray(jt, t0.dtype), jnp.full((c, N_JUNK), 8.0),
+                   jnp.zeros((c, N_JUNK)), jnp.ones((c, N_JUNK), bool),
+                   jnp.full((c, N_JUNK), 3.99))
+            cat = lambda a, b: jnp.concatenate([a, b.astype(a.dtype)], axis=1)
+        return tuple(cat(a, b) for a, b in zip((t0, of, df, valid, q), new))
+    return wrapped
+
+
+def test_q_ranked_compaction_keeps_real_bursts(monkeypatch):
+    """Junk triggers at q ~ 4 plus real preambles exceed max_out: every
+    real burst keeps its decode slot on both backends."""
+    wide, freqs, fc, truth = B.make_capture(FS, 2, 0.5)
+    raw = B.to_u8(wide[: len(wide) - len(wide) % 2000])
+    assert min(p for _c, _b, p, _l in truth) > 152 + 2 * N_JUNK
+    _, tp = _pipes(freqs, fc, "stream")
+    ch = tp.channelizer
+    from vdlm2dec_tpu_torch.ops.ingest import raw_to_planes_split
+
+    y = ch(*raw_to_planes_split(torch.from_numpy(raw), ch.p_in))
+    max_out = len(truth) + 4               # < real + junk triggers
+    assert 2 * N_JUNK > max_out
+    monkeypatch.setattr(jpipe, "find_triggers",
+                        _with_junk(jpipe.find_triggers, jnp))
+    monkeypatch.setattr(tpipe, "find_triggers",
+                        _with_junk(tpipe.find_triggers, torch))
+    bufs = {
+        "jax": np.asarray(jpipe._device_decode_packed(
+            jnp.asarray(y.numpy()), 16, 512, max_out, sync_impl="stream")),
+        "torch": tpipe.device_decode_packed(y, 16, 512, max_out,
+                                            sync_impl="stream").numpy(),
+    }
+    jp = jpipe.Pipeline(jpipe.PipelineConfig(**_cfg_kw(freqs, fc, "stream")))
+    for name, buf in bufs.items():
+        stats = jpipe.packed_stats(buf)
+        assert stats["candidates_overflow"] > 0, name
+        assert stats["sync_candidates"] >= len(truth) + 2 * N_JUNK, name
+        frames = _frames(jp._finish(jpipe.unpack_results(buf), 0))
+        assert Counter(frames) == Counter((c, b) for c, b, *_ in truth), name

@@ -1,0 +1,460 @@
+"""End-to-end decode: raw cu8 wideband IQ -> decoded AVLC frames.
+
+Device stages (PyTorch on the pipeline's device):
+  cu8 ingest -> residue-space channelizer -> sync scan (CUDA kernel on a
+  card) -> trigger extraction -> q-ranked slot compaction -> burst demod
+  -> header trellis -> block assembly -> RS(255,249) -> packed rows
+Host stages:
+  unpack -> greedy first-trigger-wins overlap filter -> HDLC deframe +
+  CRC (native C++ when built) -> frame decoder.
+
+Long captures stream in overlapping blocks; a candidate is owned by the
+block whose core region holds its trigger.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import queue
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+from vdlm2dec_tpu.constants import DEMOD_RATE, RS_K
+from vdlm2dec_tpu.golden.codec import Unstuffer, frame_crc_ok
+
+from ._tables import (
+    MAX_TX_BYTES,
+    RAW_FMT,
+    DecodedBurst,
+    PipelineConfig,
+    burst_span_samples,
+    packed_stats,
+    resolve_chan_impl,
+    stream_geometry,
+    unpack_results,
+)
+from .ops.assembly import assemble_blocks
+from .ops.channelizer import Channelizer, set_f32_matmul
+from .ops.demod import demod_candidates_inline, find_triggers
+from .ops.header import header_decode
+from .ops.ingest import raw_to_planes_split
+from .ops.rs_fec import rs_decode_rows
+from .ops.sync import MODES as SYNC_IMPLS
+from .ops.sync import sync_scan
+
+TWO_PI = 2.0 * math.pi
+
+
+def device_decode_packed(y: torch.Tensor, max_candidates: int,
+                         max_symbols: int, max_out: int,
+                         core_start: int = 0, core_len: int = 0,
+                         sync_impl: str = "stream") -> torch.Tensor:
+    """(C, T, 2) decimated streams -> (M, 2096) uint8 packed rows, one per
+    decode slot (layout in _tables.PACKED_ROW_BYTES).
+
+    Trigger slots (C, K) compact to the max_out best by sync quality q
+    BEFORE the per-candidate stages, so demod, header, assembly and RS
+    scale with max_out.  core_start/core_len (streaming): only triggers
+    inside the core region are owned, and t0 comes back core-relative."""
+    if sync_impl == "xla":
+        raise NotImplementedError('sync_impl="xla" is not ported')
+    dev = y.device
+    err, fr = sync_scan(y, sync_impl)
+    t0, of, df, valid, q = find_triggers(err, fr, max_candidates)
+    if core_len:
+        valid = valid & (t0 >= core_start) & (t0 < core_start + core_len)
+
+    c, k = t0.shape
+    n = c * k
+    m = min(max_out, n)
+    # compact by SYNC QUALITY: under slot pressure real preambles (q well
+    # below the 4.0 threshold) keep their slots and junk triggers (q near
+    # 4.0) drop; a stable sort keeps equal keys in trigger order
+    key = torch.where(valid.reshape(n), q.reshape(n),
+                      torch.full_like(q.reshape(n), math.inf))
+    order = torch.argsort(key, stable=True)[:m]
+    chan = order // k
+    t0s = t0.reshape(n)[order]
+    ofs = of.reshape(n)[order]
+    dfs = df.reshape(n)[order]
+    live = valid.reshape(n)[order]
+
+    soft = demod_candidates_inline(y, chan, t0s, ofs, dfs, max_symbols)
+    length, nbrow, nlbyte, ok = header_decode(soft[:, :25])
+    need = 8 * MAX_TX_BYTES
+    data_soft = soft[:, 25:25 + need]
+    if data_soft.shape[1] < need:
+        data_soft = torch.nn.functional.pad(
+            data_soft, (0, need - data_soft.shape[1]))
+    blocks, consumed = assemble_blocks(data_soft, nbrow, nlbyte)
+
+    rows = blocks.reshape(m * 8, 255)
+    is_last = torch.arange(8, device=dev)[None, :] == (nbrow[:, None] - 1)
+    cls_last = torch.where(nlbyte[:, None] <= 30, 2,
+                           torch.where(nlbyte[:, None] <= 67, 1, 0))
+    eras_class = torch.where(is_last, cls_last, 0).reshape(-1)
+    fixed, counts = rs_decode_rows(rows, eras_class)
+
+    # block-wide counters ride in row 0 only, so buffers of several
+    # blocks or shards concatenate and still sum correctly
+    n_sync_valid = valid.to(torch.int32).sum()
+    n_header_reject = (live & ~ok).to(torch.int32).sum()
+    first = (torch.arange(m, device=dev) == 0).to(torch.int32)
+    live = live & ok
+    i32 = torch.int32
+    meta = torch.stack([
+        chan.to(i32),
+        (t0s - core_start).to(i32),
+        length.to(i32),
+        nbrow.to(i32),
+        nlbyte.to(i32),
+        consumed.to(i32),
+        live.to(i32),
+        ofs.to(torch.float32).contiguous().view(i32),
+        dfs.to(torch.float32).contiguous().view(i32),
+        first * n_sync_valid,
+        first * n_header_reject,
+        first * torch.clamp(n_sync_valid - m, min=0),
+    ], dim=1)
+    meta_u8 = meta.contiguous().view(torch.uint8).reshape(m, 48)
+    rs8 = (counts.reshape(m, 8) + 1).to(torch.uint8)
+    return torch.cat([fixed.reshape(m, 8 * 255), rs8, meta_u8], dim=1)
+
+
+def wideband_raw_decode_dft(raw: torch.Tensor, ch: Channelizer,
+                            max_candidates: int, max_symbols: int,
+                            max_out: int, core_start: int = 0,
+                            core_len: int = 0,
+                            sync_impl: str = "stream") -> torch.Tensor:
+    """Raw cu8 bytes (on the device) -> packed rows: split-phase ingest,
+    residue-space channelizer, then device_decode_packed."""
+    x_r, x_i = raw_to_planes_split(raw, ch.p_in)
+    y = ch(x_r, x_i, split=True)
+    return device_decode_packed(y, max_candidates, max_symbols, max_out,
+                                core_start=core_start, core_len=core_len,
+                                sync_impl=sync_impl)
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    host = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    return host.to(device)
+
+
+def dispatch_fused(pipe: "Pipeline", raw: np.ndarray, fmt: str,
+                   core_start: int, core_len: int) -> torch.Tensor:
+    """Enqueue one raw block (shared by the synchronous path and
+    PipelinedDecoder): trim to whole periods, advance the period cursor,
+    run the device program.  Returns the packed rows on the device."""
+    if fmt != "cu8":
+        raise NotImplementedError(f"format {fmt!r} is not ported (cu8 only)")
+    ch = pipe.channelizer
+    per, _pad = RAW_FMT[fmt]
+    t = len(raw) // per
+    t -= t % ch.p_in
+    cfg = pipe.cfg
+    return wideband_raw_decode_dft(
+        _to_device(raw[: per * t], pipe.device), ch, cfg.max_candidates,
+        cfg.max_symbols, pipe._max_out(), core_start, core_len,
+        sync_impl=cfg.sync_impl)
+
+
+class Pipeline:
+    """Decoder for one channel plan on one device.  device is where the
+    device stages run: a CUDA device uses the hand-written sync kernel,
+    the CPU the plain PyTorch versions."""
+
+    def __init__(self, cfg: PipelineConfig, device):
+        # resolve auto fields into a private copy; the caller's cfg keeps
+        # its declared intent
+        cfg = dataclasses.replace(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.metrics = None              # optional PipelineMetrics sink
+        self._overflow_warned = False
+        self._metrics_lock = threading.Lock()
+        self.sdrclk = cfg.resolved_sdrclk()
+        if cfg.mesh is not None:
+            raise NotImplementedError("multi-device meshes are not ported")
+        if cfg.use_pallas:
+            raise NotImplementedError(
+                "the dense-channelizer ingest kernel is not ported")
+        if cfg.filter_mode != "boxcar":
+            raise NotImplementedError(
+                f"filter_mode={cfg.filter_mode!r} is not ported")
+        if cfg.compute != "f32":
+            raise NotImplementedError(f"compute={cfg.compute!r} is not ported")
+        if cfg.real_input:
+            raise NotImplementedError("real (airspy) input is not ported")
+        if cfg.sync_impl == "xla":
+            raise NotImplementedError('sync_impl="xla" is not ported')
+        if cfg.sync_impl not in SYNC_IMPLS:
+            raise ValueError(f"sync_impl must be one of {SYNC_IMPLS}")
+        set_f32_matmul()
+        if cfg.fc_hz is None:
+            from vdlm2dec_tpu.io.sdr import choose_fc
+
+            cfg.fc_hz = choose_fc([int(f) for f in cfg.freqs_hz], cfg.fs)
+        self.f_offsets = [f - cfg.fc_hz for f in cfg.freqs_hz]
+        if cfg.chan_impl == "auto":
+            cfg.chan_impl = resolve_chan_impl(
+                self.f_offsets, cfg.fs, self.sdrclk, cfg.lo_wrap,
+                cfg.filter_mode, cfg.use_pallas)
+        if cfg.chan_impl != "dft":
+            raise NotImplementedError(
+                f"chan_impl={cfg.chan_impl!r} is not ported: the port runs "
+                "the residue-space channelizer (25 kHz-raster plans, "
+                "lo_wrap=True)")
+        self.channelizer = Channelizer(self.f_offsets, fs=cfg.fs,
+                                       sdrclk=self.sdrclk, device=self.device)
+
+    def _max_out(self) -> int:
+        n = len(self.cfg.freqs_hz) * self.cfg.max_candidates
+        if self.cfg.max_out is not None:
+            return min(self.cfg.max_out, n)
+        return min(n, 512)
+
+    def _observe_packed(self, buf: np.ndarray, device_s: float = 0.0) -> None:
+        """Fold a packed buffer's stage counters into metrics and warn once
+        on candidate overflow (silent frame loss otherwise).  Called from
+        the fetch thread too, hence the lock."""
+        stats = packed_stats(buf)
+        with self._metrics_lock:
+            warn = stats["candidates_overflow"] and not self._overflow_warned
+            if warn:
+                self._overflow_warned = True
+            m = self.metrics
+            if m is not None:
+                m.sync_candidates += stats["sync_candidates"]
+                m.bursts_rejected_header += stats["bursts_rejected_header"]
+                m.candidates_overflow += stats["candidates_overflow"]
+                m.device_time_s += device_s
+        if warn:
+            print(f"vdlm2t: WARNING: {stats['candidates_overflow']} sync "
+                  f"candidates dropped: decode slots exhausted "
+                  f"(max_out={self._max_out()}); raise max_out/max_candidates",
+                  file=sys.stderr)
+
+    def decode_wideband_u8(self, raw: np.ndarray, fmt: str = "cu8",
+                           core_start: int = 0,
+                           core_len: int = 0) -> list[dict]:
+        """Raw cu8 capture -> live candidate dicts, in one device program
+        and one fetch.  core_start/core_len restrict ownership to the
+        core region; t0 then returns core-relative."""
+        t_start = time.perf_counter()
+        buf = dispatch_fused(self, raw, fmt, core_start, core_len).cpu().numpy()
+        self._observe_packed(buf, time.perf_counter() - t_start)
+        return unpack_results(buf)
+
+    def core_raw_samples(self, block_seconds: float) -> int:
+        """Raw wideband samples per streaming core block."""
+        p_in = self.channelizer.p_in
+        return max(1, int(block_seconds * self.cfg.fs) // p_in) * p_in
+
+    def stream_wideband_u8(self, raw: np.ndarray, block_seconds: float = 2.0,
+                           fmt: str = "cu8"):
+        """Streaming decode of a cu8 capture (may be a np.memmap): fixed
+        overlapping raw blocks addressed by absolute position, each one
+        device program and one fetch, overlapped through PipelinedDecoder.
+        Yields lists of DecodedBurst per block."""
+        ch = self.channelizer
+        per, pad_val = RAW_FMT[fmt]
+        p_in, p_out = ch.p_in, ch.p_out
+        lmarg_p, _rmarg_p, core_p, total_p = stream_geometry(
+            p_in, p_out, self.cfg.fs, self.cfg.max_symbols, block_seconds)
+        lmarg_dec = lmarg_p * p_out
+        core_dec = core_p * p_out
+        t_samp = len(raw) // per
+        total_dec = (t_samp // p_in) * p_out
+        n_core = -(-t_samp // (core_p * p_in))
+        n_chan = len(self.f_offsets)
+        pd = PipelinedDecoder(self, fmt=fmt, core_start=lmarg_dec,
+                              core_len=core_dec)
+        prev_end: dict[int, int] = {}    # per channel: end of the last burst
+        pending: list[int] = []                        # t_off FIFO
+
+        def seg_bytes(i):
+            lo = (i * core_p - lmarg_p) * p_in * per
+            hi = lo + total_p * p_in * per
+            seg = np.full(hi - lo, pad_val, dtype=np.uint8)
+            s_lo, s_hi = max(lo, 0), min(hi, per * t_samp)
+            if s_hi > s_lo:
+                seg[s_lo - lo: s_hi - lo] = raw[s_lo:s_hi]
+            return seg
+
+        def finish(cands, t_off):
+            if self.metrics is not None:
+                i = t_off // core_dec
+                self.metrics.decimated_samples += n_chan * max(
+                    0, min(core_dec, total_dec - i * core_dec))
+            return self._finish(cands, t_offset=t_off, prev_end=prev_end)
+
+        try:
+            for i in range(n_core):
+                pending.append(i * core_dec)
+                for cands in pd.submit(seg_bytes(i)):
+                    yield finish(cands, pending.pop(0))
+            for cands in pd.drain():
+                yield finish(cands, pending.pop(0))
+        finally:
+            pd.close()          # even when the generator is abandoned
+
+    def _finish(self, cands: list[dict], t_offset: int,
+                prev_end: dict[int, int] | None = None) -> list[DecodedBurst]:
+        """Greedy first-trigger-wins over time-sorted candidates, then HDLC
+        deframe (the serial reference suspends sync search during a
+        burst, so later triggers inside an accepted span are dropped)."""
+        bursts: list[DecodedBurst] = []
+        if prev_end is None:
+            prev_end = {}
+        for cd in sorted(cands, key=lambda d: (d["chan"], d["t0"])):
+            ci = cd["chan"]
+            t0 = cd["t0"] + t_offset          # global index
+            if t0 <= prev_end.get(ci, -1):
+                continue
+            span = burst_span_samples(cd["consumed"], cd["of"])
+            nbrow, nlbyte = cd["nbrow"], cd["nlbyte"]
+            block = cd["block"][:nbrow]
+            fr_hz = self.cfg.freqs_hz[ci] if ci < len(self.cfg.freqs_hz) else 0.0
+            ppm = 10500.0 * cd["df"] / (TWO_PI * fr_hz) * 1e6 if fr_hz else 0.0
+            burst = DecodedBurst(
+                channel=ci, t0=t0, time_s=t0 / DEMOD_RATE, freq_hz=fr_hz,
+                ppm=ppm, length_bits=cd["length"], nbrow=nbrow,
+                nlbyte=nlbyte, block=block,
+                rs_counts=[int(v) for v in cd["rs_counts"][:nbrow]],
+            )
+            burst.frames = deframe_corrected(block, nbrow, nlbyte)
+            # only a burst with a CRC-valid frame occupies its span: a
+            # 0-frame decode is almost always a junk trigger whose chaotic
+            # header length would otherwise block the channel and swallow
+            # real bursts behind it (PARITY.md divergence 1)
+            if burst.frames:
+                prev_end[ci] = t0 + span
+            bursts.append(burst)
+        return bursts
+
+
+class PipelinedDecoder:
+    """Overlapped dispatch and fetch for the streaming path.
+
+    submit() enqueues a block's device program and, on a CUDA device, an
+    asynchronous copy of its packed rows into pinned host memory followed
+    by an event; one fetch thread waits on each event in turn and unpacks,
+    so the host finishes block i while the card runs block i+1.  On the
+    CPU the program runs synchronously in submit().  Results come back in
+    submission order.
+
+    Usage:
+        pd = PipelinedDecoder(pipe)
+        for raw_block in blocks:
+            for cands in pd.submit(raw_block):
+                ...
+        for cands in pd.drain():
+            ...
+    """
+
+    def __init__(self, pipe: Pipeline, fmt: str = "cu8", core_start: int = 0,
+                 core_len: int = 0):
+        self.pipe = pipe
+        self.fmt = fmt
+        self.core_start = core_start
+        self.core_len = core_len
+        self._q = queue.Queue(maxsize=2)    # one block in flight, one queued
+        self._lock = threading.Condition()
+        self._results: dict[int, object] = {}
+        self._seq_in = 0                   # blocks dispatched
+        self._seq_out = 0                  # blocks yielded
+        self._stopping = False             # sentinel posted
+        self._thread = threading.Thread(target=self._fetch_loop, daemon=True)
+        self._thread.start()
+
+    def _fetch_loop(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            seq, host, event, t_start = item
+            try:
+                if event is not None:
+                    event.synchronize()
+                buf = host.numpy()
+                self.pipe._observe_packed(buf, time.perf_counter() - t_start)
+                r = unpack_results(buf)
+            except Exception as e:          # surfaced to the consumer
+                r = e
+            with self._lock:
+                self._results[seq] = r
+                self._lock.notify_all()
+
+    def _emit_ready(self, wait: bool = False):
+        while True:
+            with self._lock:               # never yield while holding this
+                if self._seq_out >= self._seq_in:
+                    return
+                while self._seq_out not in self._results:
+                    if not wait:
+                        return
+                    self._lock.wait()
+                r = self._results.pop(self._seq_out)
+                self._seq_out += 1
+            if isinstance(r, Exception):
+                raise r
+            yield r
+
+    def submit(self, raw: np.ndarray):
+        """Dispatch a block; yields the candidates of blocks already
+        fetched, in submission order."""
+        t_start = time.perf_counter()
+        dev = dispatch_fused(self.pipe, raw, self.fmt, self.core_start,
+                             self.core_len)
+        event = None
+        if dev.is_cuda:
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+            host.copy_(dev, non_blocking=True)
+            # record on the stream that ran the copy: on cuda:N the
+            # argument-free record() would use the current device's stream
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev.device))
+        else:
+            host = dev
+        self._q.put((self._seq_in, host, event, t_start))
+        with self._lock:
+            self._seq_in += 1
+        yield from self._emit_ready(wait=False)
+
+    def close(self):
+        """Stop and join the fetch thread; idempotent.  Every exit path
+        must reach this (the streaming generators do it in a finally)."""
+        if not self._stopping:
+            self._stopping = True
+            self._q.put(None)
+        self._thread.join(timeout=300)
+
+    def drain(self):
+        """Yield the remaining results in order, then close."""
+        if not self._stopping:
+            self._stopping = True
+            self._q.put(None)
+        yield from self._emit_ready(wait=True)
+        self.close()
+
+
+def deframe_corrected(block: np.ndarray, nbrow: int,
+                      nlbyte: int) -> list[np.ndarray]:
+    """HDLC unstuff + flag scan + CRC over an RS-corrected block, through
+    the native C++ deframer when it builds (behaviour-identical to the
+    Python path)."""
+    from vdlm2dec_tpu.host.native import deframe_block_native
+
+    frames = deframe_block_native(block, nbrow, nlbyte)
+    if frames is not None:
+        return frames
+    un = Unstuffer()
+    for r in range(nbrow):
+        by = nlbyte if r == nbrow - 1 else RS_K
+        for i in range(by):
+            un.push_byte(int(block[r, i]))
+    return [f for f in un.frames if frame_crc_ok(f)]
