@@ -4,22 +4,40 @@
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
 Phases, each printed as one JSON line with the card's name and power limit:
-  card     nvidia-smi name and power limit, torch and CUDA versions
-  build    nvcc of vdlm2dec_tpu_torch/csrc into a ctypes library
-  capture  8 channels x 2 Msps x 10 s of impaired rtl_sdr cu8 traffic
-           (bench.make_capture: ~9 bursts/s/channel)
-  kernel   the sync-scan kernel against its plain PyTorch version, both
-           modes, at the decimated block shapes of 2 s and 4 s blocks:
-           max abs / rel difference, trigger sets, CUDA-event times
-  slice    Pipeline.stream_wideband_u8 over the whole capture for
-           sync_impl stream and fused (2 s blocks, 64 trigger slots per
-           channel, 512 decode slots, 8-row bursts): decoded frames must
-           equal the stimulus truth, no slot overflow, and the kernel must
-           have been launched by the run
-  cli      `python -m vdlm2dec_tpu_torch.cli ... -J -G -E -U` on the
-           capture file (every CRC-valid frame of the random-content
-           traffic prints a JSON line): its lines must equal what
-           Pipeline + FrameDecoder emit in-process
+  card       nvidia-smi name and power limit, torch and CUDA versions
+  build      nvcc of vdlm2dec_tpu_torch/csrc (one process per source, in
+             parallel, then one link) into a ctypes library
+  capture    8 channels x 2 Msps x 10 s of impaired rtl_sdr cu8 traffic
+             (bench.make_capture: ~9 bursts/s/channel), and 4 channels x
+             6 Msps x 2 s of the same traffic as an airspy real capture
+  kernel     the sync-scan kernel (K1) against its plain PyTorch version,
+             both modes, on the decimated streams of every block shape the
+             main path gives it: the dft route's 2 s and 4 s blocks, K2's
+             32-period-aligned 2 s block (slice_pallas) and 4 s block (the
+             CLI's --pallas run), and the airspy slice's 6 Msps block: max
+             abs / rel difference, trigger sets, CUDA-event times
+  kernel_k2  the fused u8 channelizer kernel (K2) against its plain
+             version on capture bytes at the 2 s block of slice_pallas
+             (8 ch, B = 2528 periods of 2000 samples) for both LO modes,
+             at the 4 s block of the CLI's --pallas run (B = 4544), and at
+             6 Msps (4 ch, 64 periods of 6000): max abs difference, the K1
+             trigger sets of both outputs, CUDA-event times
+  slice      Pipeline.stream_wideband_u8 over the whole cu8 capture for
+             sync_impl stream and fused (residue-space channelizer, 2 s
+             blocks, 64 trigger slots per channel, 512 decode slots, 8-row
+             bursts): decoded frames must equal the stimulus truth, no slot
+             overflow, and the kernel must have been launched by the run
+  slice_pallas  the same with use_pallas=True: K2 then K1 on every block
+  slice_formats the same traffic as cs16 (dft channelizer), as cf32
+             (matmul channelizer) and the airspy capture (f32real, 6 Msps,
+             real_input): frames equal to the truth, no overflow
+  cli        `python -m vdlm2dec_tpu_torch.cli ... -J -G -E -U` on the cu8
+             capture file (plain, and with --pallas) and on the airspy file
+             (--format f32real --fs 6000000); every CRC-valid frame of the
+             random-content traffic prints a JSON line, and the lines must
+             equal what Pipeline + FrameDecoder emit in-process
+Each decode that drives the main path starts with every kernel's launch
+count at 0 and reads them when it ends; comparison launches do not count.
 Then the card line, the kernels' JSON line and, last, the result line.
 Any failed check raises (non-zero exit).  Without a CUDA card it exits 2
 and prints no result.
@@ -48,11 +66,11 @@ from vdlm2dec_tpu_torch import _build, cli
 from vdlm2dec_tpu_torch._tables import (PipelineConfig, period_for,
                                         stream_geometry)
 from vdlm2dec_tpu_torch.host_decoder import FrameDecoder
-from vdlm2dec_tpu_torch.ops import sync
+from vdlm2dec_tpu_torch.ops import chan_u8, sync
 from vdlm2dec_tpu_torch.ops.channelizer import Channelizer
 from vdlm2dec_tpu_torch.ops.demod import find_triggers
-from vdlm2dec_tpu_torch.ops.ingest import raw_to_planes_split
-from vdlm2dec_tpu_torch.pipeline import Pipeline
+from vdlm2dec_tpu_torch.ops.ingest import DC_OFFSET, raw_to_planes_split
+from vdlm2dec_tpu_torch.pipeline import Pipeline, channelize_raw
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FS = 2_000_000
@@ -70,6 +88,15 @@ ERR_TOL = (1e-4, 1e-4)           # (rtol, atol)
 FR_TOL = (1e-4, 1e-5)
 KERNEL_SOURCE = "vdlm2dec_tpu_torch/csrc/sync_scan.cu"
 REPLACES = "vdlm2dec_tpu/ops/pallas_sync.py:82"
+# K2 vs its plain version: |x lo| <= 181 and each output sums ~24-72
+# products, in ascending n in the kernel and in another order in the
+# dense einsum (worst case ~2.6e-4 at 2 Msps)
+K2_ATOL = 1e-3
+K2_SOURCE = "vdlm2dec_tpu_torch/csrc/chan_u8.cu"
+K2_REPLACES = "vdlm2dec_tpu/ops/pallas_channelizer.py:33"
+AIR_FS = 6_000_000
+AIR_CHAN = 4
+AIR_SECONDS = 2.0
 
 
 def emit(phase: str, card: str, **fields) -> None:
@@ -126,15 +153,9 @@ def trigger_diff(err_a, fr_a, err_b, fr_b) -> tuple[int, int]:
     return len(sets[0]), len(flips)
 
 
-def kernel_phase(card, raw, freqs, fc, block_seconds):
-    """Kernel vs plain at the decimated shape of one streaming block."""
-    ch = Channelizer([f - fc for f in freqs], fs=FS, device="cuda")
-    _l, _r, core_p, total_p = stream_geometry(
-        ch.p_in, ch.p_out, FS, MAX_SYMBOLS, block_seconds)
-    lo = core_p * ch.p_in * 2                  # block 1: traffic on both sides
-    seg = torch.from_numpy(raw[lo: lo + total_p * ch.p_in * 2].copy())
-    y = ch(*raw_to_planes_split(seg.cuda(), ch.p_in), period0=0)
-    torch.cuda.synchronize()
+def k1_case(card, y, **fields):
+    """K1 against its plain versions, both modes, on the decimated
+    streams y (C, T, 2) of one block."""
     out = {}
     for mode in sync.MODES:
         ref = sync.sync_scan_fused_ref if mode == "fused" \
@@ -152,8 +173,7 @@ def kernel_phase(card, raw, freqs, fc, block_seconds):
         check(n_trig > 0, f"{mode}: no triggers in the block")
         ms = cuda_ms(lambda: sync.sync_scan(y, mode))
         plain_ms = cuda_ms(lambda: ref(y))
-        res = dict(mode=mode, shape=list(y.shape),
-                   block_seconds=block_seconds,
+        res = dict(fields, mode=mode, shape=list(y.shape),
                    err_max_abs=float(d_err.max()),
                    err_max_rel=float((d_err / err_p.abs().clamp(min=1e-30)).max()),
                    fr_max_abs=float(d_fr.max()),
@@ -167,97 +187,266 @@ def kernel_phase(card, raw, freqs, fc, block_seconds):
     return out
 
 
-def slice_config(freqs, fc, sync_impl) -> PipelineConfig:
+def kernel_phase(card, raw, freqs, fc, block_seconds):
+    """K1 at the decimated shape of one block of the dft route."""
+    ch = Channelizer([f - fc for f in freqs], fs=FS, device="cuda")
+    _l, _r, core_p, total_p = stream_geometry(
+        ch.p_in, ch.p_out, FS, MAX_SYMBOLS, block_seconds)
+    lo = core_p * ch.p_in * 2                  # block 1: traffic on both sides
+    seg = torch.from_numpy(raw[lo: lo + total_p * ch.p_in * 2].copy())
+    y = ch(*raw_to_planes_split(seg.cuda(), ch.p_in), split=True, period0=0)
+    torch.cuda.synchronize()
+    return k1_case(card, y, route="dft", block_seconds=block_seconds)
+
+
+def kernel_air_phase(card, real, air_freqs, air_fc):
+    """K1 on the airspy slice's block 0 (f32real at 6 Msps, its left
+    margin padded as the stream pads it), channelized by the slice's own
+    channelizer."""
+    ch = Pipeline(air_config(air_freqs, air_fc), device="cuda").channelizer
+    lmarg_p, _r, _c, total_p = stream_geometry(
+        ch.p_in, ch.p_out, AIR_FS, MAX_SYMBOLS, SLICE_BLOCK_S)
+    seg = np.zeros(total_p * ch.p_in, np.float32)
+    n = min(len(real), (total_p - lmarg_p) * ch.p_in)
+    seg[lmarg_p * ch.p_in: lmarg_p * ch.p_in + n] = real[:n]
+    y = channelize_raw(torch.from_numpy(seg).cuda(), ch, "f32real", False)
+    torch.cuda.synchronize()
+    return k1_case(card, y, route=f"f32real/{ch.impl}", fs=AIR_FS,
+                   block_seconds=SLICE_BLOCK_S)
+
+
+def main_path_launches() -> dict:
+    """Every kernel's launch count, by the kernels line's names."""
+    out = {f"sync_scan[{m}]": sync.launches[m] for m in sync.MODES}
+    out["chan_u8"] = chan_u8.launches
+    return out
+
+
+def reset_launches() -> None:
+    sync.reset_launches()
+    chan_u8.reset_launches()
+
+
+def k2_case(card, raw, offsets, fs, lo_wrap, b, period0, with_triggers,
+            **fields):
+    """K2 against its plain version on one block of b periods of cu8
+    bytes that starts at absolute period period0: (result, K2's y)."""
+    ch = Channelizer(offsets, fs=fs, lo_wrap=lo_wrap, impl="matmul",
+                     device="cuda")
+    seg = torch.from_numpy(np.ascontiguousarray(raw)).cuda()
+    ph_r, ph_i = ch.phases(b, period0)
+    args = (seg, ch.lo_r, ch.lo_i, ph_r, ph_i, ch.a, DC_OFFSET)
+    y_k = chan_u8.channelize_u8(*args)
+    y_p = chan_u8.channelize_u8_ref(*args)
+    torch.cuda.synchronize()
+    n_chan = len(offsets)
+    check(y_k.shape == y_p.shape == (n_chan, b, ch.p_out, 2),
+          f"K2 output shape {tuple(y_k.shape)}")
+    err = float((y_k - y_p).abs().max())
+    check(bool(torch.isfinite(y_k).all()), "K2 output not finite")
+    check(err <= K2_ATOL, f"K2 differs by {err} > {K2_ATOL}")
+    res = dict(fields, shape=[n_chan, b, ch.p_in], fs=fs, lo_wrap=lo_wrap,
+               max_abs_err=err,
+               max_abs=float(y_p.abs().max()),
+               ms=cuda_ms(lambda: chan_u8.channelize_u8(*args)),
+               plain_ms=cuda_ms(lambda: chan_u8.channelize_u8_ref(*args)))
+    if with_triggers:
+        ys = [y.reshape(n_chan, -1, 2) for y in (y_k, y_p)]
+        (err_k, fr_k), (err_p, fr_p) = (sync.sync_scan(y) for y in ys)
+        n_trig, n_flip = trigger_diff(err_k, fr_k, err_p, fr_p)
+        check(n_trig > 0, "K2: no triggers in the block")
+        res.update(triggers=n_trig, trigger_flips_near_threshold=n_flip)
+    emit("kernel_k2", card, **res)
+    return res, y_k
+
+
+def kernel_k2_phase(card, raw, freqs, fc, air_u8, air_offsets):
+    """K2 on block 1 of the 32-period-aligned streams that reach it: the
+    slice's 2 s blocks (both LO modes) and the CLI's --pallas blocks
+    (4 s by default), with K1 on K2's output; then 64 periods of the
+    6 Msps traffic as cu8.  Returns (K2 results, K1 results)."""
+    p_in, p_out = period_for(FS // 4000)
+    offsets = [f - fc for f in freqs]
+    args = cli.build_parser().parse_args(
+        ["136.5", "--iq", "cap.cu8", "--fc", str(fc), "--pallas"])
+    cli_cfg = cli.pipeline_config(args, [136_500_000])
+    cases = [(SLICE_BLOCK_S, MAX_SYMBOLS, True),
+             (SLICE_BLOCK_S, MAX_SYMBOLS, False),
+             (args.block_seconds, cli_cfg.max_symbols, True)]
+    k2, k1 = [], []
+    for block_s, max_symbols, wrap in cases:
+        lmarg_p, _r, core_p, total_p = stream_geometry(
+            p_in, p_out, FS, max_symbols, block_s, align=32)
+        lo = (core_p - lmarg_p) * p_in * 2     # block 1
+        res, y = k2_case(card, raw[lo: lo + total_p * p_in * 2], offsets,
+                         FS, wrap, total_p, core_p - lmarg_p, True,
+                         block_seconds=block_s)
+        k2.append(res)
+        if wrap:
+            k1.append(k1_case(card, y.reshape(len(offsets), -1, 2),
+                              route="pallas", block_seconds=block_s))
+    air_p_in = 4 * (AIR_FS // 4000)
+    lo = len(air_u8) // (4 * air_p_in) * 2 * air_p_in      # mid-capture
+    res, _y = k2_case(card, air_u8[lo: lo + 64 * air_p_in * 2], air_offsets,
+                      AIR_FS, True, 64, lo // (2 * air_p_in), False)
+    k2.append(res)
+    return k2, k1
+
+
+def slice_config(freqs, fc, sync_impl, **kw) -> PipelineConfig:
     return PipelineConfig(
-        freqs_hz=[float(f) for f in freqs], fs=FS, fc_hz=float(fc),
-        max_candidates=MAX_CANDIDATES, max_symbols=MAX_SYMBOLS,
-        max_out=MAX_OUT, sync_impl=sync_impl)
+        freqs_hz=[float(f) for f in freqs], fs=kw.pop("fs", FS),
+        fc_hz=float(fc), max_candidates=MAX_CANDIDATES,
+        max_symbols=MAX_SYMBOLS, max_out=MAX_OUT, sync_impl=sync_impl, **kw)
+
+
+def air_config(air_freqs, air_fc) -> PipelineConfig:
+    """The airspy slice: F0 = fc + fs/4 is the capture's center, where
+    make_capture's offsets are all positive, so each conjugate image
+    misses every channel."""
+    return slice_config(air_freqs, air_fc - AIR_FS // 4, "stream",
+                        fs=AIR_FS, real_input=True)
+
+
+def truth_in_span(truth, n_samples, fs):
+    """The stimulus bursts inside the decoded span, as a frame Counter."""
+    p_in, p_out = period_for(fs // 4000)
+    span84 = (n_samples // p_in) * p_out
+    return Counter((c, b) for c, b, p0, n in truth if p0 + n <= span84)
+
+
+def decode_phase(card, phase, pipe, raw, fmt, n_samples, truth, **fields):
+    """One counted main-path decode of a whole capture through
+    stream_wideband_u8: frames must equal the truth, no slot overflow,
+    and every kernel of the route launched once per block."""
+    want = truth_in_span(truth, n_samples, pipe.cfg.fs)
+    warm = raw[: len(raw) // n_samples * pipe.core_raw_samples(SLICE_BLOCK_S)]
+    for _ in pipe.stream_wideband_u8(warm, block_seconds=SLICE_BLOCK_S,
+                                     fmt=fmt):
+        pass                                   # builds tables, warms up
+    torch.cuda.synchronize()
+    pipe.metrics = cli.PipelineMetrics()
+    pipe._overflow_warned = False
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                           # counts of the main path
+    t = time.perf_counter()
+    bursts = [b for bs in pipe.stream_wideband_u8(
+        raw, block_seconds=SLICE_BLOCK_S, fmt=fmt) for b in bs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = main_path_launches()
+    got = Counter((b.channel, bytes(bytearray(f[1:-3])))
+                  for b in bursts for f in b.frames)
+    m = pipe.metrics
+    n_blocks = -(-n_samples // pipe.core_raw_samples(SLICE_BLOCK_S))
+    res = dict(fields, fmt=fmt, chan_impl=pipe.cfg.chan_impl,
+               use_pallas=pipe.cfg.use_pallas, fs=pipe.cfg.fs,
+               channels=len(pipe.cfg.freqs_hz), blocks=n_blocks,
+               frames=sum(got.values()), truth_bursts=sum(want.values()),
+               recall=f"{sum((got & want).values())}/{sum(want.values())}",
+               missed=sum((want - got).values()),
+               extra=sum((got - want).values()),
+               sync_candidates=m.sync_candidates,
+               candidates_overflow=m.candidates_overflow,
+               launches=launched, wall_s=wall,
+               msps=n_samples / wall / 1e6,
+               peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+    emit(phase, card, **res)
+    what = f"{phase} {fields}"
+    check(got == want, f"{what}: decoded frames differ from the truth")
+    check(m.candidates_overflow == 0, f"{what}: decode slots overflowed")
+    expect = {k: 0 for k in launched}
+    expect[f"sync_scan[{pipe.cfg.sync_impl}]"] = n_blocks
+    if pipe.cfg.use_pallas:
+        expect["chan_u8"] = n_blocks
+    check(launched == expect,
+          f"{what}: launches {launched}, want {expect} for {n_blocks} blocks")
+    return launched
+
+
+def slice_pallas_phase(card, raw, freqs, fc, truth):
+    """The cu8 slice with use_pallas: the fused u8 channelizer (K2)."""
+    pipe = Pipeline(slice_config(freqs, fc, "stream", use_pallas=True),
+                    device="cuda")
+    check(pipe.cfg.chan_impl == "matmul", "use_pallas resolved to "
+          f"{pipe.cfg.chan_impl}")
+    return decode_phase(card, "slice_pallas", pipe, raw, "cu8",
+                        len(raw) // 2, truth, route="pallas")
+
+
+def format_captures(wide, air_wide):
+    """The slice's traffic as cs16 (round(wide * 256), as
+    tools/drive_formats.py) and cf32, and the 6 Msps traffic as an airspy
+    real capture 2 Re{wide}."""
+    inter = np.empty(2 * len(wide), np.float32)
+    inter[0::2], inter[1::2] = wide.real, wide.imag
+    cs16 = np.clip(np.round(inter * 256), -32768, 32767).astype(np.int16)
+    return cs16, inter, (2.0 * air_wide.real).astype(np.float32)
+
+
+def slice_formats_phase(card, caps, freqs, fc, truth, air):
+    """cs16 (dft), cf32 (matmul) and f32real (airspy, 6 Msps)."""
+    cs16, cf32, real = caps
+    air_freqs, air_fc, air_truth = air
+    runs = [
+        ("cs16", cs16, Pipeline(slice_config(freqs, fc, "stream"),
+                                device="cuda"), truth),
+        ("cf32", cf32, Pipeline(slice_config(freqs, fc, "stream",
+                                             chan_impl="matmul"),
+                                device="cuda"), truth),
+        ("f32real", real, Pipeline(air_config(air_freqs, air_fc),
+                                   device="cuda"), air_truth),
+    ]
+    out = {}
+    for fmt, raw, pipe, want in runs:
+        n = len(raw) if fmt == "f32real" else len(raw) // 2
+        out[fmt] = decode_phase(card, "slice_formats", pipe, raw, fmt, n,
+                                want, route=fmt)
+    return out
 
 
 def slice_phase(card, raw, freqs, fc, truth):
     """The decode slice through Pipeline.stream_wideband_u8, both modes."""
-    p_in, p_out = period_for(FS // 4000)
-    span84 = (len(raw) // 2 // p_in) * p_out
-    want = Counter((c, b) for c, b, p0, n in truth if p0 + n <= span84)
-    pipes = {m: Pipeline(slice_config(freqs, fc, m), device="cuda")
-             for m in sync.MODES}
-    warm = raw[: 2 * int(SLICE_BLOCK_S * FS)]
-    for pipe in pipes.values():                # builds tables, warms up
-        for _ in pipe.stream_wideband_u8(warm, block_seconds=SLICE_BLOCK_S):
-            pass
-    torch.cuda.synchronize()
-
-    sync.reset_launches()                      # counts of the main path
-    for mode, pipe in pipes.items():
-        before = dict(sync.launches)
-        pipe.metrics = cli.PipelineMetrics()
-        pipe._overflow_warned = False
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        bursts = [b for bs in pipe.stream_wideband_u8(
-            raw, block_seconds=SLICE_BLOCK_S) for b in bs]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        got = Counter((b.channel, bytes(bytearray(f[1:-3])))
-                      for b in bursts for f in b.frames)
-        m = pipe.metrics
-        n_blocks = -(-len(raw) // 2 // pipe.core_raw_samples(SLICE_BLOCK_S))
-        launched = {k: sync.launches[k] - before[k] for k in sync.MODES}
-        res = dict(
-            sync_impl=mode, blocks=n_blocks,
-            frames=sum(got.values()), truth_bursts=sum(want.values()),
-            recall=f"{sum((got & want).values())}/{sum(want.values())}",
-            missed=sum((want - got).values()),
-            extra=sum((got - want).values()),
-            sync_candidates=m.sync_candidates,
-            candidates_overflow=m.candidates_overflow,
-            kernel_launches=launched[mode],
-            wall_s=wall, msps=len(raw) // 2 / wall / 1e6,
-            peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
-        emit("slice", card, **res)
-        check(got == want, f"{mode}: decoded frames differ from the truth")
-        check(m.candidates_overflow == 0, f"{mode}: decode slots overflowed")
-        check(launched[mode] == n_blocks,
-              f"{mode}: {launched[mode]} kernel launches for {n_blocks} blocks")
-        check(all(v == 0 for k, v in launched.items() if k != mode),
-              f"{mode}: launched another mode's kernel")
-    return dict(sync.launches)
+    launches = Counter()
+    for mode in sync.MODES:
+        pipe = Pipeline(slice_config(freqs, fc, mode), device="cuda")
+        launches.update(decode_phase(card, "slice", pipe, raw, "cu8",
+                                     len(raw) // 2, truth, sync_impl=mode))
+    return launches
 
 
-def cli_phase(card, raw, freqs, fc):
-    """The CLI on the capture file vs the same decode in-process."""
-    with tempfile.TemporaryDirectory(prefix="vdl2_smoke_") as tmp:
-        path = os.path.join(tmp, "cap.cu8")
-        raw.tofile(path)
-        argv = [*(f"{f / 1e6:.6f}" for f in freqs), "--iq", path,
-                "--fc", str(fc), "-J", "-G", "-E", "-U", "--start-time", "0",
-                "-i", "SMOKE"]
-        t = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "vdlm2dec_tpu_torch.cli",
-                            *argv], capture_output=True, text=True,
-                           timeout=900, cwd=REPO)
-        wall = time.perf_counter() - t
-        check(r.returncode == 0, f"cli exited {r.returncode}: {r.stderr[-2000:]}")
-        got = [ln for ln in r.stdout.splitlines() if ln.strip()]
+def cli_phase(card, path, fmt, freqs, fc, extra=()):
+    """The CLI on a capture file vs the same decode in-process."""
+    argv = [*(f"{f / 1e6:.6f}" for f in freqs), "--iq", path,
+            "--fc", str(fc), "-J", "-G", "-E", "-U", "--start-time", "0",
+            "-i", "SMOKE", *extra]
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "vdlm2dec_tpu_torch.cli",
+                        *argv], capture_output=True, text=True,
+                       timeout=900, cwd=REPO)
+    wall = time.perf_counter() - t
+    check(r.returncode == 0, f"cli exited {r.returncode}: {r.stderr[-2000:]}")
+    got = [ln for ln in r.stdout.splitlines() if ln.strip()]
 
-        args = cli.build_parser().parse_args(argv)
-        cfg = cli.pipeline_config(
-            args, cli.validate_freqs([int(f * 1e6) for f in args.freqs]))
-        log = io.StringIO()
-        out_cfg = cli.output_config(args, verbose=0)
-        out_cfg.logfile = log
-        dec = FrameDecoder(out_cfg, time_base=0.0)
-        pipe = Pipeline(cfg, device="cuda")
-        for bursts in pipe.stream_wideband_u8(
-                cli.CaptureReader(path, "cu8").raw,
-                block_seconds=args.block_seconds):
-            for b in bursts:
-                dec.process_burst(b)
-        want = [ln for ln in log.getvalue().splitlines() if ln.strip()]
-    emit("cli", card, lines=len(got), lines_in_process=len(want),
-         identical=got == want, wall_s=wall,
+    args = cli.build_parser().parse_args(argv)
+    check(args.format == fmt, f"cli format {args.format} != {fmt}")
+    cfg = cli.pipeline_config(
+        args, cli.validate_freqs([int(f * 1e6) for f in args.freqs]))
+    log = io.StringIO()
+    out_cfg = cli.output_config(args, verbose=0)
+    out_cfg.logfile = log
+    dec = FrameDecoder(out_cfg, time_base=0.0)
+    pipe = Pipeline(cfg, device="cuda")
+    for bursts in pipe.stream_wideband_u8(
+            cli.CaptureReader(path, fmt).raw,
+            block_seconds=args.block_seconds, fmt=fmt):
+        for b in bursts:
+            dec.process_burst(b)
+    want = [ln for ln in log.getvalue().splitlines() if ln.strip()]
+    emit("cli", card, format=fmt, flags=list(extra), lines=len(got),
+         lines_in_process=len(want), identical=got == want, wall_s=wall,
          block_seconds=args.block_seconds, max_symbols=cfg.max_symbols,
-         max_out=pipe._max_out())
+         max_out=pipe._max_out(), chan_impl=pipe.cfg.chan_impl)
     check(len(got) > 0, "the CLI printed no JSON line")
     check(got == want, "CLI JSON lines differ from the in-process decode")
 
@@ -282,22 +471,52 @@ def main() -> int:
     t = time.perf_counter()
     wide, freqs, fc, truth = bench.make_capture(FS, N_CHAN, SECONDS)
     raw = bench.to_u8(wide)
+    air_wide, air_freqs, air_fc, air_truth = bench.make_capture(
+        AIR_FS, AIR_CHAN, AIR_SECONDS)
+    caps = format_captures(wide, air_wide)
     emit("capture", card, channels=N_CHAN, seconds=SECONDS, fc=fc,
-         bursts=len(truth), synth_s=time.perf_counter() - t)
+         bursts=len(truth), air_fs=AIR_FS, air_channels=AIR_CHAN,
+         air_seconds=AIR_SECONDS, air_fc=air_fc, air_bursts=len(air_truth),
+         synth_s=time.perf_counter() - t)
 
     kern = {s: kernel_phase(card, raw, freqs, fc, s) for s in (2.0, 4.0)}
+    k2, k1 = kernel_k2_phase(card, raw, freqs, fc, bench.to_u8(air_wide),
+                             [f - air_fc for f in air_freqs])
+    k1.append(kernel_air_phase(card, caps[2], air_freqs, air_fc))
+    # launches of the main-path decodes, each counted from 0
     launches = slice_phase(card, raw, freqs, fc, truth)
-    cli_phase(card, raw, freqs, fc)
+    launches.update(slice_pallas_phase(card, raw, freqs, fc, truth))
+    for counted in slice_formats_phase(
+            card, caps, freqs, fc, truth,
+            (air_freqs, air_fc, air_truth)).values():
+        launches.update(counted)
+    with tempfile.TemporaryDirectory(prefix="vdl2_smoke_") as tmp:
+        path = os.path.join(tmp, "cap.cu8")
+        raw.tofile(path)
+        air_path = os.path.join(tmp, "air.f32")
+        caps[2].tofile(air_path)
+        cli_phase(card, path, "cu8", freqs, fc)
+        cli_phase(card, path, "cu8", freqs, fc, ["--pallas"])
+        cli_phase(card, air_path, "f32real", air_freqs,
+                  air_fc - AIR_FS // 4,
+                  ["--format", "f32real", "--fs", str(AIR_FS)])
 
     kernels = []
     for mode in sync.MODES:
-        k2, k4 = kern[2.0][mode], kern[4.0][mode]
+        cases = [c[mode] for c in (kern[2.0], kern[4.0], *k1)]
         kernels.append(dict(
             name=f"sync_scan[{mode}]", route="cuda", source=KERNEL_SOURCE,
-            replaces=REPLACES, launches=launches[mode],
-            max_abs_err=max(k2["err_max_abs"], k2["fr_max_abs"],
-                            k4["err_max_abs"], k4["fr_max_abs"]),
-            ms=k2["ms"], plain_ms=k2["plain_ms"]))
+            replaces=REPLACES, launches=launches[f"sync_scan[{mode}]"],
+            max_abs_err=max(max(c["err_max_abs"], c["fr_max_abs"])
+                            for c in cases),
+            ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"]))
+    kernels.append(dict(
+        name="chan_u8", route="cuda", source=K2_SOURCE, replaces=K2_REPLACES,
+        launches=launches["chan_u8"],
+        max_abs_err=max(c["max_abs_err"] for c in k2),
+        ms=k2[0]["ms"], plain_ms=k2[0]["plain_ms"]))
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@
 The machine with the CUDA card has no jax, so the port must import and
 decode with jax blocked (sys.modules["jax"] = None): a subprocess runs the
 port's CLI that way on the CPU and its JSON lines must equal the JAX
-CLI's on the same capture.
+CLI's on the same capture, for both sync modes, every channelizer route
+(--pallas with JAX's Pallas kernel in interpret mode, --chan-impl matmul
+and pfb) and every capture format (cs16, cf32, f32real at 6 Msps).
 """
+import functools
 import json
 import os
 import subprocess
@@ -16,27 +19,50 @@ import pytest
 from vdlm2dec_tpu import framegen as fg
 from vdlm2dec_tpu import modulator as mod
 from vdlm2dec_tpu.io.sdr import write_capture
+from vdlm2dec_tpu.ops import pallas_channelizer as jpallas
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FC = 136_900_000
 
 
-@pytest.fixture(scope="module")
-def cap(tmp_path_factory):
-    """Two ACARS bursts on two channels, 0.6 s of 2 Msps cu8."""
-    rng = np.random.default_rng(4)
-    fs, total = 2_000_000, 1_200_000
+TEXTS = ["PORT CLI ONE", "PORT CLI TWO"]
+
+
+def _wide(fs: int, fc: int, total: int, seed: int) -> np.ndarray:
+    """Two ACARS bursts on two channels (TEXTS), as complex baseband
+    around fc at fs, plus unit noise."""
+    rng = np.random.default_rng(seed)
     wide = np.zeros(total, np.complex128)
-    for freq, text, start in ((136_975_000, "PORT CLI ONE", 900),
-                              (136_725_000, "PORT CLI TWO", 20_000)):
+    for freq, text, start in ((136_975_000, TEXTS[0], 900),
+                              (136_725_000, TEXTS[1], 20_000)):
         plan = mod.make_burst([fg.acars_frame(text=text, label="Q0")])
         bb = mod.synthesize_baseband(plan, start=start,
                                      total=total * 84_000 // fs)
-        wide += mod.upsample_to_wideband(bb, fs, freq - FC, total=total) * 40
-    wide += rng.normal(size=total) + 1j * rng.normal(size=total)
-    path = tmp_path_factory.mktemp("cli") / "cap.cu8"
-    write_capture(str(path), wide, "cu8")
-    return str(path)
+        wide += mod.upsample_to_wideband(bb, fs, freq - fc, total=total) * 40
+    return wide + rng.normal(size=total) + 1j * rng.normal(size=total)
+
+
+@pytest.fixture(scope="module")
+def caps(tmp_path_factory):
+    """0.6 s of the two bursts as cu8, cs16 and cf32 at 2 Msps, and as an
+    airspy f32real capture 2 Re{wide} at 6 Msps around F0 = FC, tuned to
+    FC - 1.5 MHz (offsets +75 and -175 kHz: the conjugate images fall
+    outside both channels)."""
+    d = tmp_path_factory.mktemp("cli")
+    wide = _wide(2_000_000, FC, 1_200_000, 4)
+    paths = {}
+    for fmt in ("cu8", "cs16", "cf32"):
+        paths[fmt] = str(d / f"cap.{fmt}")
+        write_capture(paths[fmt], wide, fmt)
+    paths["f32real"] = str(d / "cap.f32")
+    write_capture(paths["f32real"], 2 * _wide(6_000_000, FC, 3_600_000, 5).real,
+                  "f32real")
+    return paths
+
+
+@pytest.fixture(scope="module")
+def cap(caps):
+    return caps["cu8"]
 
 
 ARGS = ["136.975", "136.725", "--fc", str(FC), "--max-rows", "1",
@@ -59,9 +85,7 @@ def _run_port_cli(argv):
                           cwd=REPO)
 
 
-@pytest.mark.parametrize("sync_impl", ["stream", "fused"])
-def test_port_cli_without_jax_matches_jax_cli(cap, sync_impl, capsys):
-    argv = ["--iq", cap, "--sync-impl", sync_impl, *ARGS]
+def _assert_port_cli_matches_jax_cli(argv, capsys):
     r = _run_port_cli([*argv, "--device", "cpu"])
     assert r.returncode == 0, r.stderr[-2000:]
     got = [l for l in r.stdout.splitlines() if l.strip()]
@@ -73,13 +97,57 @@ def test_port_cli_without_jax_matches_jax_cli(cap, sync_impl, capsys):
     want = [l for l in capsys.readouterr().out.splitlines() if l.strip()]
     assert got == want
     texts = sorted(json.loads(l)["text"] for l in got)
-    assert texts == ["PORT CLI ONE", "PORT CLI TWO"]
+    assert texts == TEXTS
+
+
+@pytest.mark.parametrize("sync_impl", ["stream", "fused"])
+def test_port_cli_without_jax_matches_jax_cli(cap, sync_impl, capsys):
+    argv = ["--iq", cap, "--sync-impl", sync_impl, *ARGS]
+    _assert_port_cli_matches_jax_cli(argv, capsys)
+
+
+ROUTES = {
+    "pallas": ("cu8", ["--pallas"]),
+    "matmul": ("cu8", ["--chan-impl", "matmul"]),
+    "pfb": ("cu8", ["--chan-impl", "pfb"]),
+    "cs16": ("cs16", ["--format", "cs16"]),
+    "cf32": ("cf32", ["--format", "cf32"]),
+    "f32real": ("f32real", ["--format", "f32real", "--fs", "6000000",
+                            "--fc", str(FC - 1_500_000)]),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_port_cli_route_matches_jax_cli(caps, route, capsys, monkeypatch):
+    """The flags this port now runs: the port's CLI without jax prints
+    the JAX CLI's JSON lines (JAX's Pallas kernel in interpret mode)."""
+    fmt, flags = ROUTES[route]
+    monkeypatch.setattr(jpallas, "channelize_u8_pallas", functools.partial(
+        jpallas.channelize_u8_pallas, interpret=True))
+    argv = ["--iq", caps[fmt], *ARGS, *flags]
+    _assert_port_cli_matches_jax_cli(argv, capsys)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--pallas", "--chan-impl", "dft"],
+    ["--chan-impl", "pfb", "--channel-filter", "fir"],
+])
+def test_port_cli_refuses_as_jax_cli(cap, flags, capsys):
+    """The JAX CLI's early refusals: exit 1 and the same message."""
+    from vdlm2dec_tpu.cli import main as jax_main
+    from vdlm2dec_tpu_torch import cli
+
+    argv = ["136.975", "--iq", cap, *flags]
+    assert cli.main([*argv, "--device", "cpu"]) == 1
+    got = capsys.readouterr().err
+    assert jax_main(argv) == 1
+    assert got == capsys.readouterr().err != ""
 
 
 @pytest.mark.parametrize("flag", [
-    ["--pallas"], ["--chan-impl", "pfb"], ["--chan-impl", "matmul"],
     ["--channel-filter", "fir"], ["--compute", "bf16"], ["--mesh", "1x4"],
-    ["--checkpoint", "ck.json"], ["--format", "cs16"], ["--sync-impl", "xla"],
+    ["--checkpoint", "ck.json"], ["--sync-impl", "xla"],
+    ["--pallas", "--format", "cs16"],
 ])
 def test_port_cli_refuses_unported_flags(flag, capsys):
     from vdlm2dec_tpu_torch import cli

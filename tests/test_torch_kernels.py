@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from vdlm2dec_tpu_torch.ops import sync
+from vdlm2dec_tpu_torch._tables import (aggregation_matrix, lo_tables,
+                                        period_phases)
+from vdlm2dec_tpu_torch.ops import chan_u8, sync
+from vdlm2dec_tpu_torch.ops.ingest import DC_OFFSET
 
 # test workers share the CPU: one PyTorch thread each
 torch.set_num_threads(1)
@@ -21,6 +24,10 @@ torch.set_num_threads(1)
 # paths to (tests/test_fused_sync.py), kept in case an atan2 ulp differs
 ERR_TOL = dict(rtol=1e-4, atol=1e-4)
 FR_TOL = dict(rtol=1e-4, atol=1e-5)
+# fused u8 channelizer, kernel against its plain version: |x lo| <= 181,
+# each output sums ~24 (2 Msps) to ~72 (6 Msps) products, in ascending n
+# in the kernel and in another order in the dense einsum
+CHAN_U8_ATOL = 1e-3
 
 
 def _stream(shape, seed):
@@ -91,3 +98,77 @@ def test_stream_decode_on_second_card_matches_first():
     assert torch.cuda.current_device() == 0
     assert frames["cuda:1"] == frames["cuda:0"] == \
         sorted((c, b) for c, b, *_ in truth)
+
+
+def _chan_u8_inputs(n_chan, b, fs, lo_wrap, seed, device="cpu"):
+    """Random cu8 bytes and the tables of a channel plan, as tensors."""
+    rng = np.random.default_rng(seed)
+    sdrclk = fs // 4000
+    offs = tuple(float(25_000 * (3 * i - 7)) + (0.0 if lo_wrap else 1_300.0)
+                 for i in range(n_chan))
+    lo, _ = lo_tables(offs, fs, sdrclk, lo_wrap)
+    ph = period_phases(offs, fs, sdrclk, lo_wrap, b, 5)
+    raw = rng.integers(0, 256, b * 4 * sdrclk * 2).astype(np.uint8)
+    arrays = (raw, lo.real, lo.imag, ph.real, ph.imag,
+              aggregation_matrix(sdrclk))
+    return [torch.tensor(np.ascontiguousarray(v), device=device)
+            for v in arrays]
+
+
+def test_chan_u8_cpu_tensor_takes_plain_version():
+    args = _chan_u8_inputs(3, 4, 2_000_000, False, 1)
+    before = chan_u8.launches
+    y = chan_u8.channelize_u8(*args, DC_OFFSET)
+    assert chan_u8.launches == before
+    assert y.shape == (3, 4, 84, 2)
+    assert torch.equal(y, chan_u8.channelize_u8_ref(*args, DC_OFFSET))
+    with pytest.raises(ValueError):            # raw of the wrong length
+        chan_u8.channelize_u8(args[0][:-2], *args[1:], DC_OFFSET)
+    with pytest.raises(ValueError):            # a table of the wrong type
+        chan_u8.channelize_u8(args[0], args[1].double(), *args[2:],
+                              DC_OFFSET)
+
+
+@pytest.mark.parametrize("sdrclk", [500, 1250, 1500])
+def test_aggregation_windows_rebuild_the_matrix(sdrclk):
+    """The kernel's window starts and weights hold every nonzero of the
+    dense matrix, and a matrix of another form is refused."""
+    a = aggregation_matrix(sdrclk)
+    starts, weights = chan_u8.aggregation_windows(a)
+    dense = np.zeros_like(a)
+    for k in range(a.shape[1]):
+        dense[starts[k]:starts[k + 1], k] = weights[starts[k]:starts[k + 1]]
+    np.testing.assert_array_equal(dense, a)
+    two = a.copy()
+    two[5, 40] = 1.0                           # an input feeding two outputs
+    gap = a.copy()
+    gap[:, 1] = 0.0
+    gap[starts[1]:starts[2], 0] = 1.0          # output 1 owns no input
+    for bad in (two, gap, a[::-1]):
+        with pytest.raises(ValueError):
+            chan_u8.aggregation_windows(np.ascontiguousarray(bad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chan,b,fs,lo_wrap", [
+    (8, 2528, 2_000_000, True), (8, 2528, 2_000_000, False),
+    (8, 4544, 2_000_000, True), (4, 64, 6_000_000, True),
+    (3, 5, 5_000_000, False),
+])
+def test_chan_u8_kernel_matches_plain_on_card(n_chan, b, fs, lo_wrap):
+    """On CUDA tensors the wrapper launches csrc/chan_u8.cu (one launch
+    counted) and agrees with its plain version, at the 2 s block of the
+    8-channel slice, at the CLI's 4 s block, at 6 Msps, and at a B that
+    is no multiple of 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the channelizer kernel has no CPU "
+                    "mode")
+    args = _chan_u8_inputs(n_chan, b, fs, lo_wrap, 2, device="cuda")
+    before = chan_u8.launches
+    y = chan_u8.channelize_u8(*args, DC_OFFSET)
+    torch.cuda.synchronize()
+    assert chan_u8.launches == before + 1
+    ref = chan_u8.channelize_u8_ref(*args, DC_OFFSET)
+    assert y.shape == ref.shape == (n_chan, b, 84, 2)
+    np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=CHAN_U8_ATOL)

@@ -19,11 +19,21 @@ from vdlm2dec_tpu.ops import channelizer as jch
 from vdlm2dec_tpu.ops import demod as jdemod
 from vdlm2dec_tpu.ops import header as jhdr
 from vdlm2dec_tpu.ops import rs_fec as jrs
+from vdlm2dec_tpu.golden.dsp import mix_and_decimate
+from vdlm2dec_tpu.ops.pallas_channelizer import channelize_u8_pallas
 from vdlm2dec_tpu.ops.pallas_sync import sync_scan_pallas
 from vdlm2dec_tpu.pipeline import _raw_to_planes, _raw_to_planes_split
-from vdlm2dec_tpu_torch.ops import assembly, demod, header, rs_fec, sync
-from vdlm2dec_tpu_torch.ops.channelizer import Channelizer
-from vdlm2dec_tpu_torch.ops.ingest import DC_OFFSET, raw_to_planes_split
+from vdlm2dec_tpu_torch.ops import assembly, chan_u8, demod, header, rs_fec, sync
+from vdlm2dec_tpu_torch.ops.channelizer import (
+    Channelizer,
+    channelize_matmul,
+    channelize_pfb,
+)
+from vdlm2dec_tpu_torch.ops.ingest import (
+    DC_OFFSET,
+    raw_to_planes,
+    raw_to_planes_split,
+)
 
 # test workers share the CPU: one PyTorch thread each
 torch.set_num_threads(1)
@@ -76,6 +86,33 @@ def test_ingest_split_planes_exact():
     assert DC_OFFSET == float(np.float32(127.37))
 
 
+def _raw_of(fmt, n_periods, rng):
+    n = n_periods * P_IN * (1 if fmt == "f32real" else 2)
+    if fmt == "cu8":
+        return rng.integers(0, 256, n).astype(np.uint8)
+    if fmt == "cs16":
+        raw = rng.integers(-32768, 32768, n).astype(np.int16)
+        raw[:4] = [-32768, 32767, -1, 0]
+        return raw
+    return (rng.normal(size=n) * 100).astype(np.float32)
+
+
+@pytest.mark.parametrize("fmt", ["cu8", "cs16", "cf32", "f32real"])
+def test_raw_to_planes_exact(fmt):
+    """Sample-order planes of every capture format equal the JAX
+    package's bit for bit: integer -> float32 conversions and copies."""
+    raw = _raw_of(fmt, 5, np.random.default_rng(3))
+    want = [np.asarray(v) for v in _raw_to_planes(
+        jnp.asarray(raw), fmt, jnp.float32(127.37), P_IN)]
+    got = [v.numpy() for v in raw_to_planes(_t(raw), fmt, P_IN)]
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32 and g.shape == (5, P_IN)
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError):              # each format its dtype
+        other = np.int16 if raw.dtype != np.int16 else np.uint8
+        raw_to_planes(_t(raw.astype(other)), fmt, P_IN)
+
+
 def test_ingest_rejects_partial_periods():
     with pytest.raises(ValueError):
         raw_to_planes_split(torch.zeros(P_IN * 2 + 4, dtype=torch.uint8), P_IN)
@@ -96,8 +133,10 @@ def test_channelizer_matches_jax(split):
     offsets = (-275_000.0, 25_000.0, 350_000.0)
     jc = jch.Channelizer(offsets, fs=2_000_000, lo_wrap=True, impl="dft")
     w_r, w_i, a2 = (np.asarray(v) for v in jc.qr_tables(split))
-    tc = Channelizer.from_numpy_tables(w_r, w_i, a2, period_cursor=7,
-                                       split=split)
+    sfx = "s" if split else "n"
+    tc = Channelizer.from_numpy_tables(
+        offsets, {f"w_r_{sfx}": w_r, f"w_i_{sfx}": w_i, f"a2_{sfx}": a2},
+        period_cursor=7)
     if split:
         x_r, x_i = _raw_to_planes_split(jnp.asarray(raw), jnp.float32(127.37),
                                         P_IN)
@@ -124,6 +163,133 @@ def test_channelizer_own_tables_equal_carried_tables():
     for split in (True, False):
         for mine, theirs in zip(tc.qr_tables(split), jc.qr_tables(split)):
             np.testing.assert_array_equal(mine.numpy(), np.asarray(theirs))
+
+
+# dense channelizer tolerance: each output sums its window's ~24 (2 Msps)
+# products of |x lo| <= 181 in another order than XLA's dot, a few ulps
+# of 181 (the dense product's zero terms add exactly)
+DENSE_ATOL = 2e-4
+
+
+@pytest.mark.parametrize("lo_wrap", [True, False])
+def test_channelize_matmul_matches_jax(lo_wrap):
+    """The dense channelizer with the JAX Channelizer's own device
+    constants (_lo_r, _lo_i, _a) carried across, and with its own."""
+    rng = np.random.default_rng(4)
+    x_r = rng.normal(size=(7, P_IN)).astype(np.float32) * 60
+    x_i = rng.normal(size=(7, P_IN)).astype(np.float32) * 60
+    offsets = (-275_000.0, 36_500.0, 350_000.0)
+    jc = jch.Channelizer(offsets, fs=2_000_000, lo_wrap=lo_wrap,
+                         impl="matmul")
+    ph = jch.period_phases(offsets, 2_000_000, 500, lo_wrap, 7, 11)
+    ph_r, ph_i = np.ascontiguousarray(ph.real), np.ascontiguousarray(ph.imag)
+    want = [np.asarray(v) for v in jch._channelize_jit(
+        jnp.asarray(x_r), jnp.asarray(x_i), jc._lo_r, jc._lo_i,
+        jnp.asarray(ph_r), jnp.asarray(ph_i), jc._a)]
+    tables = {"lo_r": np.asarray(jc._lo_r), "lo_i": np.asarray(jc._lo_i),
+              "a": np.asarray(jc._a)}
+    carried = Channelizer.from_numpy_tables(offsets, tables, impl="matmul",
+                                            lo_wrap=lo_wrap, period_cursor=11)
+    own = Channelizer(offsets, lo_wrap=lo_wrap, impl="matmul")
+    for name, v in tables.items():
+        np.testing.assert_array_equal(getattr(own, name).numpy(), v)
+    y = carried(_t(x_r), _t(x_i), split=False).numpy()
+    assert carried._period_cursor == 18
+    yr, yi = channelize_matmul(_t(x_r), _t(x_i), own.lo_r, own.lo_i,
+                               _t(ph_r), _t(ph_i), own.a)
+    for got in ((y[..., 0], y[..., 1]), (yr.numpy(), yi.numpy())):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=DENSE_ATOL)
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_channelize_pfb_matches_jax(split):
+    """The factorized-DFT filterbank, split-phase and sample-order
+    planes.  Tolerance: the residue sums as for CHAN_ATOL, then two DFT
+    stages (8 and 10 points at 2 Msps) of unit-modulus factors in
+    float32, 18 more products per output: 7.6e-6 at this seed, stated at
+    5e-4."""
+    rng = np.random.default_rng(5)
+    raw = rng.integers(0, 256, 6 * P_IN * 2).astype(np.uint8)
+    offsets = (-275_000.0, 25_000.0, 350_000.0)
+    jc = jch.Channelizer(offsets, fs=2_000_000, lo_wrap=True, impl="pfb")
+    if split:
+        x_r, x_i = _raw_to_planes_split(jnp.asarray(raw), jnp.float32(127.37),
+                                        P_IN)
+    else:
+        x_r, x_i = _raw_to_planes(jnp.asarray(raw), "cu8",
+                                  jnp.float32(127.37), P_IN)
+    want = [np.asarray(v) for v in jch._channelize_pfb_jit(
+        x_r, x_i, jc.qr_tables(split)[2], jc._pfb_dfa, jc._pfb_tw,
+        jc._pfb_dfb, jc._pfb_bins, jc._pfb_a, jc._pfb_b, split=split)]
+    tc = Channelizer(offsets, impl="pfb")
+    for name in ("dfa", "tw", "dfb", "bins"):
+        np.testing.assert_array_equal(getattr(tc, f"pfb_{name}").numpy(),
+                                      np.asarray(getattr(jc, f"_pfb_{name}")))
+    y = tc(_t(np.asarray(x_r)), _t(np.asarray(x_i)), split=split).numpy()
+    a2 = tc.qr_tables(split)[2]
+    yr, yi = channelize_pfb(_t(np.asarray(x_r)), _t(np.asarray(x_i)), a2,
+                            tc.pfb_dfa, tc.pfb_tw, tc.pfb_dfb, tc.pfb_bins,
+                            split)
+    for got in ((y[..., 0], y[..., 1]), (yr.numpy(), yi.numpy())):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0, atol=5e-4)
+
+
+def test_channelizer_rejects_what_jax_asserts():
+    with pytest.raises(ValueError):
+        Channelizer((25_000.0,), impl="fir")
+    for impl in ("dft", "pfb"):
+        with pytest.raises(ValueError):
+            Channelizer((25_000.0,), impl=impl, lo_wrap=False)
+    with pytest.raises(ValueError):
+        Channelizer((25_000.0,), impl="dft").forward_u8(
+            torch.zeros(2 * P_IN, dtype=torch.uint8))
+
+
+# fused u8 channelizer tolerance (the kernel's plain version against the
+# Pallas kernel in interpret mode): the same products, summed by two
+# different dense matmuls, as DENSE_ATOL; the period phase is one more
+# complex product per output
+U8_ATOL = 2e-4
+
+
+@pytest.mark.parametrize("fs,sdrclk,lo_wrap,b", [
+    (2_000_000, 500, True, 64), (2_000_000, 500, False, 64),
+    (5_000_000, 1250, True, 32), (6_000_000, 1500, True, 32),
+])
+def test_channelize_u8_ref_matches_pallas(fs, sdrclk, lo_wrap, b):
+    """channelize_u8_ref against channelize_u8_pallas(interpret=True) and
+    the golden decimator (atol 5e-4, as tests/test_pallas.py)."""
+    rng = np.random.default_rng(6)
+    p_in = 4 * sdrclk
+    offs = ((25_000.0, -75_000.0, 150_000.0, 36_500.0) if fs == 2_000_000
+            else (-1_200_000.0,))
+    lo, _ = jch.lo_tables(offs, fs, sdrclk, lo_wrap)
+    ph = jch.period_phases(offs, fs, sdrclk, lo_wrap, b, 3)
+    a = jch.aggregation_matrix(sdrclk)
+    raw = rng.integers(0, 256, (b, p_in, 2)).astype(np.uint8)
+    args = [np.ascontiguousarray(v) for v in (lo.real, lo.imag, ph.real,
+                                              ph.imag)]
+    want = np.asarray(channelize_u8_pallas(
+        jnp.asarray(np.ascontiguousarray(raw[:, :, 0])),
+        jnp.asarray(np.ascontiguousarray(raw[:, :, 1])),
+        *map(jnp.asarray, args), jnp.asarray(a),
+        jnp.asarray([np.float32(127.37)]), interpret=True))
+    got = chan_u8.channelize_u8_ref(_t(raw.reshape(-1)), *map(_t, args),
+                                    _t(a), DC_OFFSET).numpy()
+    assert got.shape == want.shape == (len(offs), b, 84, 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=U8_ATOL)
+    x = (raw[:, :, 0].astype(np.float64) - 127.37
+         + 1j * (raw[:, :, 1].astype(np.float64) - 127.37)).reshape(-1)
+    for ci, fo in enumerate(offs):
+        # the golden decimator starts at period 0: rotate by period 3's
+        # phase relative to period 0's
+        ref = mix_and_decimate(x, fo, fs, sdrclk, lo_table_wrap=lo_wrap)
+        if not lo_wrap:
+            ref = ref * np.exp(-2j * np.pi * fo * p_in / fs * 3)
+        g = (got[ci, ..., 0] + 1j * got[ci, ..., 1]).reshape(-1)
+        np.testing.assert_allclose(g, ref, atol=5e-4)
 
 
 # ---------------------------------------------------------------- sync

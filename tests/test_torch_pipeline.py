@@ -1,11 +1,15 @@
 """The PyTorch port's decode slice against the JAX Pipeline, on the CPU.
 
-Same cu8 capture, same PipelineConfig, both sync modes: the packed rows of
-every live decode slot (meta word 6 = 1) must agree byte for byte, apart
-from the float of/df words, and the decoded frames must equal the JAX
-frames and the stimulus truth.  Also pins the q-ranked slot compaction
-under slot pressure on both backends.
+Same capture, same PipelineConfig, both sync modes and every route of the
+fused streaming path (channelizers dft / matmul / pfb / use_pallas, the
+four capture formats): the packed rows of every live decode slot (meta
+word 6 = 1) must agree byte for byte, apart from the float of/df words,
+and the decoded frames must equal the JAX frames and the stimulus truth.
+Where JAX reaches its Pallas ingest kernel it runs in interpret mode.
+Also pins the q-ranked slot compaction under slot pressure on both
+backends.
 """
+import functools
 import threading
 from collections import Counter
 
@@ -17,6 +21,7 @@ import jax.numpy as jnp
 
 import bench as B
 from vdlm2dec_tpu import pipeline as jpipe
+from vdlm2dec_tpu.ops import pallas_channelizer as jpallas
 from vdlm2dec_tpu_torch import pipeline as tpipe
 from vdlm2dec_tpu_torch._tables import PipelineConfig, unpack_results
 
@@ -100,14 +105,8 @@ def test_decode_wideband_u8_matches_jax(capture, sync_impl):
     assert _frames(got) == _frames(want) == sorted((c, b) for c, b, *_ in truth)
 
 
-@pytest.mark.parametrize("sync_impl", ["stream", "fused"])
-def test_stream_wideband_u8_matches_jax(capture, sync_impl):
-    raw, freqs, fc, truth = capture
-    jp, tp = _pipes(freqs, fc, sync_impl)
-    want = [b for bs in jp.stream_wideband_u8(raw, block_seconds=0.25)
-            for b in bs]
-    got = [b for bs in tp.stream_wideband_u8(raw, block_seconds=0.25)
-           for b in bs]
+def _assert_bursts_match(got, want, truth):
+    """Block for block, field for field, and the frames equal the truth."""
     assert len(got) == len(want) > 0
     for g, w in zip(got, want):
         assert (g.channel, g.t0, g.length_bits, g.nbrow, g.nlbyte,
@@ -116,6 +115,94 @@ def test_stream_wideband_u8_matches_jax(capture, sync_impl):
         np.testing.assert_array_equal(g.block, w.block)
         assert g.ppm == pytest.approx(w.ppm, rel=1e-4, abs=1e-3)
     assert _frames(got) == _frames(want) == sorted((c, b) for c, b, *_ in truth)
+
+
+@pytest.mark.parametrize("sync_impl", ["stream", "fused"])
+def test_stream_wideband_u8_matches_jax(capture, sync_impl):
+    raw, freqs, fc, truth = capture
+    jp, tp = _pipes(freqs, fc, sync_impl)
+    want = [b for bs in jp.stream_wideband_u8(raw, block_seconds=0.25)
+            for b in bs]
+    got = [b for bs in tp.stream_wideband_u8(raw, block_seconds=0.25)
+           for b in bs]
+    _assert_bursts_match(got, want, truth)
+
+
+@pytest.fixture(scope="module")
+def small_captures():
+    """One 0.5 s, 2-channel stimulus in every capture format: cu8, cs16
+    (round(wide * 256) as tools/drive_formats.py), cf32 at 2 Msps, and an
+    airspy f32real capture 2 Re{wide} at 6 Msps, whose offsets (+250,
+    +300 kHz from F0) put each conjugate image outside every channel."""
+    wide, freqs, fc, truth = B.make_capture(FS, 2, 0.5)
+    wide = wide[: len(wide) - len(wide) % 2000]
+    inter = np.empty(2 * len(wide), np.float32)
+    inter[0::2], inter[1::2] = wide.real, wide.imag
+    caps = {
+        "cu8": B.to_u8(wide),
+        "cs16": np.clip(np.round(inter * 256), -32768, 32767).astype(np.int16),
+        "cf32": inter,
+    }
+    plan = (freqs, fc, truth)
+    wide6, freqs6, fc6, truth6 = B.make_capture(6_000_000, 2, 0.5)
+    real = (2 * wide6.real).astype(np.float32)
+    caps["f32real"] = real[: len(real) - len(real) % 6000]
+    return caps, plan, (freqs6, fc6, truth6)
+
+
+ROUTES = {
+    "pallas": ("cu8", dict(use_pallas=True)),
+    "matmul": ("cu8", dict(chan_impl="matmul")),
+    "pfb": ("cu8", dict(chan_impl="pfb")),
+    "cs16": ("cs16", dict()),
+    "cf32": ("cf32", dict(chan_impl="matmul")),
+    "f32real": ("f32real", dict(real_input=True, fs=6_000_000)),
+}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_stream_wideband_u8_route_matches_jax(small_captures, route,
+                                              monkeypatch):
+    """Each further route of the fused streaming path against JAX's:
+    use_pallas (JAX's Pallas kernel in interpret mode), the matmul and
+    pfb channelizers, cs16 (dft, sample-order planes), cf32 (matmul) and
+    an airspy f32real capture at 6 Msps (real_input: F0 = fc + fs/4)."""
+    caps, plan2, plan6 = small_captures
+    fmt, extra = ROUTES[route]
+    freqs, fc, truth = plan6 if fmt == "f32real" else plan2
+    if extra.get("real_input"):
+        fc = fc - extra["fs"] // 4           # so that F0 is the capture's fc
+    if extra.get("use_pallas"):
+        monkeypatch.setattr(jpallas, "channelize_u8_pallas", functools.partial(
+            jpallas.channelize_u8_pallas, interpret=True))
+    kw = {**_cfg_kw(freqs, fc, "stream"), **extra}
+    jp = jpipe.Pipeline(jpipe.PipelineConfig(**kw))
+    tp = tpipe.Pipeline(PipelineConfig(**kw), device="cpu")
+    assert tp.channelizer.impl == jp.channelizer.impl
+    want = [b for bs in jp.stream_wideband_u8(caps[fmt], block_seconds=0.25,
+                                              fmt=fmt) for b in bs]
+    got = [b for bs in tp.stream_wideband_u8(caps[fmt], block_seconds=0.25,
+                                             fmt=fmt) for b in bs]
+    _assert_bursts_match(got, want, truth)
+
+
+def test_decode_wideband_u8_lo_wrap_false_matches_jax(small_captures):
+    """The continuous LO (matmul route): two consecutive blocks through
+    decode_wideband_u8, the second continuing the LO phase from the
+    period cursor, give JAX's packed rows."""
+    caps, (freqs, fc, truth), _ = small_captures
+    jp, tp = _pipes(freqs, fc, "stream", lo_wrap=False)
+    assert tp.cfg.chan_impl == jp.cfg.chan_impl == "matmul"
+    raw = caps["cu8"]
+    half = len(raw) // 2 - (len(raw) // 2) % 4000
+    for part in (raw[:half], raw[half:]):
+        jb = np.asarray(jpipe._dispatch_fused(jp, part, "cu8", 0, 0))
+        tb = tpipe.dispatch_fused(tp, part, "cu8", 0, 0).numpy()
+        _assert_packed_match(jb, tb)
+        assert tp.channelizer._period_cursor == jp.channelizer._period_cursor
+    cands = tpipe.Pipeline(tp.cfg, device="cpu").decode_wideband_u8(raw)
+    got = tp._finish(cands, 0)
+    assert _frames(got) == sorted((c, b) for c, b, *_ in truth)
 
 
 def test_abandoned_stream_stops_its_fetch_thread(capture):
@@ -134,14 +221,26 @@ def test_abandoned_stream_stops_its_fetch_thread(capture):
 def test_unported_configs_raise():
     kw = dict(freqs_hz=[136_975_000.0], fc_hz=136_900_000.0)
     for extra in (dict(sync_impl="xla"), dict(compute="bf16"),
-                  dict(use_pallas=True), dict(filter_mode="fir"),
-                  dict(chan_impl="pfb"), dict(lo_wrap=False),
-                  dict(mesh=object()), dict(real_input=True)):
+                  dict(filter_mode="fir"), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             tpipe.Pipeline(PipelineConfig(**kw, **extra), device="cpu")
+    # what the JAX package refuses by assertion
+    for extra in (dict(use_pallas=True, chan_impl="dft"),
+                  dict(use_pallas=True, chan_impl="pfb"),
+                  dict(chan_impl="pfb", lo_wrap=False)):
+        with pytest.raises(ValueError):
+            tpipe.Pipeline(PipelineConfig(**kw, **extra), device="cpu")
+    with pytest.raises(ValueError):
+        next(tpipe.Pipeline(PipelineConfig(**kw, lo_wrap=False),
+                            device="cpu").stream_wideband_u8(
+            np.zeros(8000, np.uint8)))
+    pallas = tpipe.Pipeline(PipelineConfig(**kw, use_pallas=True),
+                            device="cpu")
+    with pytest.raises(ValueError):
+        pallas.decode_wideband_u8(np.zeros(256_000, np.int16), fmt="cs16")
     pipe = tpipe.Pipeline(PipelineConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.decode_wideband_u8(np.zeros(8000, np.int16), fmt="cs16")
+    with pytest.raises(ValueError):           # raw of another format
+        pipe.decode_wideband_u8(np.zeros(8000, np.uint8), fmt="cs16")
 
 
 # ---------------------------------------------------------------- slot pressure
@@ -183,7 +282,7 @@ def test_q_ranked_compaction_keeps_real_bursts(monkeypatch):
     ch = tp.channelizer
     from vdlm2dec_tpu_torch.ops.ingest import raw_to_planes_split
 
-    y = ch(*raw_to_planes_split(torch.from_numpy(raw), ch.p_in))
+    y = ch(*raw_to_planes_split(torch.from_numpy(raw), ch.p_in), split=True)
     max_out = len(truth) + 4               # < real + junk triggers
     assert 2 * N_JUNK > max_out
     monkeypatch.setattr(jpipe, "find_triggers",

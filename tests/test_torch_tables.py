@@ -155,3 +155,36 @@ def test_burst_span_and_unpack_equal():
         assert g.keys() == w.keys()
         for k in g:
             np.testing.assert_array_equal(g[k], w[k])
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_dense_channelizer_tables_equal(plan):
+    """aggregation_matrix, lo_tables and period_phases (both LO modes, a
+    nonzero start period) equal the JAX originals bit for bit."""
+    offsets, fs, sdrclk = plan
+    a_t = T.aggregation_matrix(sdrclk)
+    assert a_t.dtype == np.float32
+    np.testing.assert_array_equal(a_t, jch.aggregation_matrix(sdrclk))
+    for wrap in (True, False):
+        lo_t, tbl_t = T.lo_tables(offsets, fs, sdrclk, wrap)
+        lo_j, tbl_j = jch.lo_tables(offsets, fs, sdrclk, wrap)
+        assert tbl_t == tbl_j and lo_t.dtype == lo_j.dtype
+        np.testing.assert_array_equal(lo_t, lo_j)
+        for start in (0, 37):
+            ph_t = T.period_phases(offsets, fs, sdrclk, wrap, 12, start)
+            ph_j = jch.period_phases(offsets, fs, sdrclk, wrap, 12, start)
+            assert ph_t.dtype == ph_j.dtype and ph_t.shape == (len(offsets), 12)
+            np.testing.assert_array_equal(ph_t, ph_j)
+
+
+@pytest.mark.parametrize("plan", PLANS)
+def test_pfb_tables_equal(plan):
+    offsets, fs, sdrclk = plan
+    got, want = T.pfb_tables(offsets, fs, sdrclk), jch.pfb_tables(offsets, fs,
+                                                                  sdrclk)
+    assert got[:2] == want[:2]
+    for g, w in zip(got[2:], want[2:]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    for n in (80, 200, 240, 97):
+        assert T._near_sqrt_factors(n) == jch._near_sqrt_factors(n)

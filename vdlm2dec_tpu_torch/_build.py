@@ -1,10 +1,12 @@
 """Builds the package's CUDA kernels from csrc/ and binds them with ctypes.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a -shared` compiles every
-csrc/*.cu into one shared library with a plain C interface, at first use,
-into _build/ beside this file (listed in .gitignore).  The library's name
-carries a hash of the sources, so an edited kernel is rebuilt and a stale
-one is never loaded.  Nothing here runs at import time.
+At first use, one `nvcc -gencode arch=compute_90a,code=sm_90a -c` per
+csrc/*.cu (the sync scan and the fused u8 channelizer), all started
+together, then one `nvcc -shared` link into a single library with a plain
+C interface, in _build/ beside this file (listed in .gitignore).  The
+library's name carries a hash of the sources, so an edited kernel is
+rebuilt and a stale one is never loaded.  Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -21,8 +23,10 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -55,22 +59,50 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvdl2_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[int, str]]:
+    """Run the commands concurrently; (returncode, stdout + stderr) of
+    each.  Every process is gone when this returns, on error too."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        results = []
+        for p in procs:
+            text = p.communicate(timeout=NVCC_TIMEOUT_S)[0]
+            results.append((p.returncode, text))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def _compile(out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build into a temporary name and rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    t = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_info["nvcc_s"] = time.perf_counter() - t
-    build_info["ptxas"] = proc.stderr.strip()
-    if proc.returncode:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    # build in a temporary directory and rename: a concurrent or
+    # interrupted build never leaves a half-written library under the
+    # final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        so = str(Path(tmp) / out.name)
+        t = time.perf_counter()
+        steps = [
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+             for obj, src in zip(objs, _sources())],
+            [[nvcc, *ARCH, "-shared", "-o", so, *objs]],
+        ]
+        report = []
+        for cmds in steps:
+            for cmd, (rc, text) in zip(cmds, _run_all(cmds)):
+                report.append(text.strip())
+                if rc:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n"
+                                       f"{' '.join(cmd)}\n{text}")
+        build_info["nvcc_s"] = time.perf_counter() - t
+        build_info["ptxas"] = "\n".join(report)
+        os.replace(so, out)
 
 
 def load() -> ctypes.CDLL:
@@ -87,6 +119,12 @@ def load() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.vdl2_chan_u8.restype = ctypes.c_int
+            lib.vdl2_chan_u8.argtypes = [
+                *[ctypes.c_void_p] * 7, ctypes.c_float, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
             ]
             build_info["library"] = str(path)
             _lib = lib

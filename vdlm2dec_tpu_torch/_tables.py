@@ -51,6 +51,81 @@ def period_for(sdrclk: int) -> tuple[int, int]:
     return p_in, p_out
 
 
+def aggregation_matrix(sdrclk: int) -> np.ndarray:
+    """(P_in, 84) float32 integrate-and-dump: A[n, m] = 1/len_m if input
+    n feeds output m, i.e. floor(21 n / sdrclk) == m (d8psk.c:353-381)."""
+    p_in, p_out = period_for(sdrclk)
+    owner = (21 * np.arange(p_in)) // sdrclk
+    a = np.zeros((p_in, p_out), dtype=np.float64)
+    for m in range(p_out):
+        idx = np.nonzero(owner == m)[0]
+        a[idx, m] = 1.0 / len(idx)
+    return a.astype(np.float32)
+
+
+def lo_tables(f_offsets, fs: int, sdrclk: int,
+              wrap: bool) -> tuple[np.ndarray, int]:
+    """Per-channel base LO over one period, (C, P_in) complex64, and the
+    reference's LO table length fs/25 kHz.  wrap=True replicates the
+    reference's phase-wrapping table; wrap=False is a continuous LO."""
+    p_in, _ = period_for(sdrclk)
+    tbl = fs // STEPRATE
+    assert p_in % tbl == 0 or not wrap
+    n = np.arange(p_in)
+    fo = np.asarray(f_offsets, dtype=np.float64)[:, None]
+    idx = n % tbl if wrap else n
+    lo = np.exp(-1j * TWO_PI * fo / fs * idx)
+    return lo.astype(np.complex64), tbl
+
+
+def period_phases(f_offsets, fs: int, sdrclk: int, wrap: bool,
+                  n_periods: int, start_period: int = 0) -> np.ndarray:
+    """(C, B) complex64 LO phase at each period start: exactly 1 with the
+    wrapped table, exp(-j 2 pi fo P_in / fs) per period otherwise."""
+    p_in, _ = period_for(sdrclk)
+    if wrap:
+        return np.ones((len(f_offsets), n_periods), dtype=np.complex64)
+    fo = np.asarray(f_offsets, dtype=np.float64)[:, None]
+    p = np.arange(start_period, start_period + n_periods)[None, :]
+    ang = -TWO_PI * fo * (p_in / fs) * p
+    return np.exp(1j * ang).astype(np.complex64)
+
+
+def _near_sqrt_factors(n: int) -> tuple[int, int]:
+    """n = a*b with a <= b and b-a minimal (FFT radix split)."""
+    a = int(math.isqrt(n))
+    while n % a:
+        a -= 1
+    return a, n // a
+
+
+def pfb_tables(f_offsets, fs: int, sdrclk: int):
+    """Factorized-DFT filterbank tables: all tbl = fs/25 kHz raster bins
+    as DFT_a -> twiddle -> DFT_b with tbl = a*b.  Returns (a, b, dft_a
+    (a, a, 2), twiddle (a, b, 2), dft_b (b, b, 2), bins (C, 2) int32
+    [k1, k2]) with k = k1 + a*k2 = fo/25 kHz mod tbl."""
+    tbl = fs // STEPRATE
+    a, b = _near_sqrt_factors(tbl)
+    for fo in f_offsets:
+        k = fo / STEPRATE
+        assert abs(k - round(k)) < 1e-9, (
+            f"pfb channelizer needs raster-aligned offsets, got {fo}")
+    bins = np.array([int(round(fo / STEPRATE)) % tbl for fo in f_offsets],
+                    dtype=np.int64)
+    k1, k2 = bins % a, bins // a
+    r1 = np.arange(a)
+    r2 = np.arange(b)
+    dft_a = np.exp(-2j * np.pi * np.outer(r1, r1) / a)        # [k1, r1]
+    tw = np.exp(-2j * np.pi * np.outer(r1, r2) / tbl)         # [k1, r2]
+    dft_b = np.exp(-2j * np.pi * np.outer(r2, r2) / b)        # [k2, r2]
+
+    def planes(m):
+        return np.stack([m.real, m.imag], axis=-1).astype(np.float32)
+
+    return (a, b, planes(dft_a), planes(tw), planes(dft_b),
+            np.stack([k1, k2], axis=1).astype(np.int32))
+
+
 def dft_qr_tables(f_offsets, fs: int, sdrclk: int,
                   split: bool) -> tuple[np.ndarray, np.ndarray]:
     """Residue-space channelizer tables: (w (C, tbl) complex64, a2 (Q, tbl,
@@ -282,9 +357,10 @@ class DecodedBurst:
 @dataclass
 class PipelineConfig:
     """The JAX package's PipelineConfig, field for field, so one config
-    drives both packages.  The port runs the cu8 residue-space ("dft")
-    path with sync_impl "stream" or "fused" under compute "f32"; the other
-    values raise NotImplementedError in Pipeline."""
+    drives both packages.  The port runs the fused streaming path (every
+    capture format, the dft / matmul / pfb channelizers, use_pallas) with
+    sync_impl "stream" or "fused" under compute "f32" and the boxcar
+    filter; the other values raise NotImplementedError in Pipeline."""
     freqs_hz: list[float]                  # RF channel frequencies
     fs: int = 2_000_000                    # wideband input rate
     fc_hz: float | None = None             # center frequency (None: auto)

@@ -1,13 +1,16 @@
-"""Command-line decoder for cu8 capture files on a CUDA card (or the CPU).
+"""Command-line decoder for capture files on a CUDA card (or the CPU).
 
     python -m vdlm2dec_tpu_torch.cli 136.725 136.775 --iq cap.cu8 -J
+    python -m vdlm2dec_tpu_torch.cli 136.975 --iq air.f32 --format f32real \
+        --fs 6000000 -J
 
 The file path of the JAX package's CLI (vdlm2dec_tpu/cli.py), with the
 same flag names and defaults for what this package runs: freqs in MHz,
---iq, --format cu8, --fs, --fc, --block-seconds, --max-rows, -J, -G, -E,
--U, -i, -v, -q, --start-time, --stats, --sync-impl stream|fused and
---device.  Flags whose paths are not ported are accepted by the parser
-and refused with an error naming them.
+--iq, --format cu8|cs16|cf32|f32real, --fs, --fc, --block-seconds,
+--max-rows, -J, -G, -E, -U, -i, -v, -q, --start-time, --stats, --pallas,
+--chan-impl auto|dft|matmul|pfb, --sync-impl stream|fused and --device.
+Flags whose paths are not ported are accepted by the parser and refused
+with an error naming them.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ import sys
 
 from vdlm2dec_tpu.constants import MAX_BURST_SYMBOLS
 from vdlm2dec_tpu.host.output import OutputConfig
-from vdlm2dec_tpu.io.sdr import CaptureReader, choose_fc, validate_freqs
+from vdlm2dec_tpu.io.sdr import (CaptureReader, choose_fc, choose_fc_airspy,
+                                 validate_freqs)
 from vdlm2dec_tpu.metrics import PipelineMetrics
 
 from ._tables import PipelineConfig
@@ -29,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="VDL Mode 2 decoder, PyTorch/CUDA backend "
                     "(vdlm2dec-compatible output)")
     p.add_argument("freqs", nargs="+", type=float, help="frequencies in MHz")
-    p.add_argument("--iq", required=True, help="cu8 capture file")
+    p.add_argument("--iq", required=True, help="capture file")
     p.add_argument("--format", default="cu8",
                    choices=["cu8", "cs16", "cf32", "f32real"])
     p.add_argument("--fs", type=int, default=2_000_000)
@@ -48,15 +52,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device for the device stages (cuda, cuda:1, "
                         "cpu)")
+    p.add_argument("--pallas", action="store_true",
+                   help="cu8 through the fused u8 channelizer (a CUDA "
+                        "kernel on a card) with the dense matmul "
+                        "channelizer")
+    p.add_argument("--chan-impl", default="auto",
+                   choices=["auto", "matmul", "dft", "pfb"],
+                   help="auto = residue-space dft when the plan is "
+                        "eligible (raster offsets, no --pallas), else dense "
+                        "matmul; pfb = factorized-DFT filterbank")
     # flags of paths this package does not run yet
     p.add_argument("--mesh", default=None)
     p.add_argument("--checkpoint", default=None)
-    p.add_argument("--pallas", action="store_true")
     p.add_argument("--channel-filter", default="boxcar",
                    choices=["boxcar", "fir"])
     p.add_argument("--compute", default="f32", choices=["f32", "bf16"])
-    p.add_argument("--chan-impl", default="auto",
-                   choices=["auto", "matmul", "dft", "pfb"])
 
     p.add_argument("-v", dest="verbose", action="store_true")
     p.add_argument("-q", dest="quiet", action="store_true")
@@ -72,14 +82,14 @@ def unported(args) -> str | None:
     """The first flag of the command line whose path is not ported."""
     checks = [
         (args.iq == "-", "--iq - (live input)"),
-        (args.format != "cu8", f"--format {args.format}"),
         (args.mesh is not None, "--mesh"),
         (args.checkpoint is not None, "--checkpoint"),
-        (args.pallas, "--pallas"),
+        # the JAX CLI takes the non-fused stream_wideband route here
+        (args.pallas and args.format != "cu8",
+         f"--pallas with --format {args.format}"),
         (args.channel_filter != "boxcar",
          f"--channel-filter {args.channel_filter}"),
         (args.compute != "f32", f"--compute {args.compute}"),
-        (args.chan_impl in ("matmul", "pfb"), f"--chan-impl {args.chan_impl}"),
         (args.sync_impl == "xla", "--sync-impl xla"),
     ]
     for bad, flag in checks:
@@ -88,14 +98,33 @@ def unported(args) -> str | None:
     return None
 
 
+def refusal(args) -> str | None:
+    """The JAX CLI's own refusals of flag combinations (exit 1)."""
+    if args.chan_impl in ("dft", "pfb") and args.pallas:
+        return (f"--chan-impl {args.chan_impl} replaces the Pallas ingest "
+                "kernel; drop --pallas")
+    if args.chan_impl in ("dft", "pfb") and args.channel_filter != "boxcar":
+        return (f"--chan-impl {args.chan_impl} requires the boxcar channel "
+                "filter")
+    return None
+
+
 def pipeline_config(args, freqs: list[int]) -> PipelineConfig:
     """The PipelineConfig the command line asks for."""
-    fc = args.fc if args.fc is not None else choose_fc(freqs, args.fs)
+    real_input = args.format == "f32real"
+    if args.fc is not None:
+        fc = args.fc
+    elif real_input:
+        fc = choose_fc_airspy(freqs, args.fs)
+    else:
+        fc = choose_fc(freqs, args.fs)
     return PipelineConfig(
         freqs_hz=[float(f) for f in freqs],
         fs=args.fs,
         fc_hz=float(fc),
+        real_input=real_input,
         max_symbols=min(MAX_BURST_SYMBOLS, args.max_rows * 680 + 16),
+        use_pallas=args.pallas,
         chan_impl=args.chan_impl,
         sync_impl=args.sync_impl,
     )
@@ -110,11 +139,6 @@ def output_config(args, verbose: int) -> OutputConfig:
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    flag = unported(args)
-    if flag:
-        parser.error(f"{flag} is not supported by the PyTorch backend yet; "
-                     "use vdlm2t (python -m vdlm2dec_tpu.cli)")
-
     verbose = 0 if args.quiet else (2 if args.verbose else 1)
     if args.jsonout:
         verbose = 0               # main.c:200-201
@@ -123,6 +147,14 @@ def main(argv=None) -> int:
         print("Need at least one valid frequency (118-138 MHz)",
               file=sys.stderr)
         return 1
+    msg = refusal(args)
+    if msg:
+        print(msg, file=sys.stderr)
+        return 1
+    flag = unported(args)
+    if flag:
+        parser.error(f"{flag} is not supported by the PyTorch backend yet; "
+                     "use vdlm2t (python -m vdlm2dec_tpu.cli)")
     try:
         cfg = pipeline_config(args, freqs)
     except ValueError as e:       # chooseFc found no usable center
@@ -145,7 +177,8 @@ def main(argv=None) -> int:
     n_frames = 0
     try:
         for bursts in pipe.stream_wideband_u8(
-                reader.raw, block_seconds=args.block_seconds):
+                reader.raw, block_seconds=args.block_seconds,
+                fmt=args.format):
             metrics.observe_bursts(bursts)
             for b in bursts:
                 dec.process_burst(b)

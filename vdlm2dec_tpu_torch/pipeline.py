@@ -1,9 +1,12 @@
-"""End-to-end decode: raw cu8 wideband IQ -> decoded AVLC frames.
+"""End-to-end decode: raw wideband IQ -> decoded AVLC frames.
 
 Device stages (PyTorch on the pipeline's device):
-  cu8 ingest -> residue-space channelizer -> sync scan (CUDA kernel on a
-  card) -> trigger extraction -> q-ranked slot compaction -> burst demod
-  -> header trellis -> block assembly -> RS(255,249) -> packed rows
+  ingest of the capture's native samples (cu8, cs16, cf32, f32real) ->
+  channelizer (residue-space "dft", dense "matmul", filterbank "pfb", or
+  with use_pallas the fused u8 channelizer: a CUDA kernel on a card) ->
+  sync scan (CUDA kernel on a card) -> trigger extraction -> q-ranked
+  slot compaction -> burst demod -> header trellis -> block assembly ->
+  RS(255,249) -> packed rows
 Host stages:
   unpack -> greedy first-trigger-wins overlap filter -> HDLC deframe +
   CRC (native C++ when built) -> frame decoder.
@@ -41,7 +44,7 @@ from .ops.assembly import assemble_blocks
 from .ops.channelizer import Channelizer, set_f32_matmul
 from .ops.demod import demod_candidates_inline, find_triggers
 from .ops.header import header_decode
-from .ops.ingest import raw_to_planes_split
+from .ops.ingest import raw_to_planes, raw_to_planes_split
 from .ops.rs_fec import rs_decode_rows
 from .ops.sync import MODES as SYNC_IMPLS
 from .ops.sync import sync_scan
@@ -125,15 +128,39 @@ def device_decode_packed(y: torch.Tensor, max_candidates: int,
     return torch.cat([fixed.reshape(m, 8 * 255), rs8, meta_u8], dim=1)
 
 
-def wideband_raw_decode_dft(raw: torch.Tensor, ch: Channelizer,
-                            max_candidates: int, max_symbols: int,
-                            max_out: int, core_start: int = 0,
-                            core_len: int = 0,
-                            sync_impl: str = "stream") -> torch.Tensor:
-    """Raw cu8 bytes (on the device) -> packed rows: split-phase ingest,
-    residue-space channelizer, then device_decode_packed."""
-    x_r, x_i = raw_to_planes_split(raw, ch.p_in)
-    y = ch(x_r, x_i, split=True)
+def channelize_raw(raw: torch.Tensor, ch: Channelizer, fmt: str,
+                   use_pallas: bool) -> torch.Tensor:
+    """Native raw samples (on the device, whole periods) -> (C, T, 2)
+    decimated streams, routed by the channelizer's impl.
+
+    use_pallas (cu8 and the matmul channelizer only) runs the fused u8
+    channelizer on the raw bytes.  Otherwise the capture converts to
+    planes, split-phase for cu8 into the residue-space channelizers and
+    in sample order for everything else.  Either way the channelizer
+    advances its period cursor by the block."""
+    if use_pallas:
+        if fmt != "cu8":
+            raise ValueError("the fused u8 channelizer takes cu8 only")
+        return ch.forward_u8(raw)
+    split = fmt == "cu8" and ch.impl != "matmul"
+    if split:
+        x_r, x_i = raw_to_planes_split(raw, ch.p_in)
+    else:
+        x_r, x_i = raw_to_planes(raw, fmt, ch.p_in)
+    return ch(x_r, x_i, split=split)
+
+
+def wideband_raw_decode(raw: torch.Tensor, ch: Channelizer, fmt: str,
+                        use_pallas: bool, max_candidates: int,
+                        max_symbols: int, max_out: int, core_start: int = 0,
+                        core_len: int = 0,
+                        sync_impl: str = "stream") -> torch.Tensor:
+    """Native raw samples (on the device, whole periods) -> packed rows:
+    the JAX package's fused device programs _wideband_u8_decode,
+    _wideband_raw_decode_dft and _wideband_raw_decode_pfb
+    (vdlm2dec_tpu/pipeline.py:344-475): channelize_raw, then
+    device_decode_packed."""
+    y = channelize_raw(raw, ch, fmt, use_pallas)
     return device_decode_packed(y, max_candidates, max_symbols, max_out,
                                 core_start=core_start, core_len=core_len,
                                 sync_impl=sync_impl)
@@ -147,25 +174,25 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 def dispatch_fused(pipe: "Pipeline", raw: np.ndarray, fmt: str,
                    core_start: int, core_len: int) -> torch.Tensor:
     """Enqueue one raw block (shared by the synchronous path and
-    PipelinedDecoder): trim to whole periods, advance the period cursor,
-    run the device program.  Returns the packed rows on the device."""
-    if fmt != "cu8":
-        raise NotImplementedError(f"format {fmt!r} is not ported (cu8 only)")
+    PipelinedDecoder): trim to whole periods (to 32-period tiles under
+    use_pallas, as the JAX package does), run the device program, which
+    advances the period cursor.  Returns the packed rows on the device."""
     ch = pipe.channelizer
+    cfg = pipe.cfg
     per, _pad = RAW_FMT[fmt]
     t = len(raw) // per
-    t -= t % ch.p_in
-    cfg = pipe.cfg
-    return wideband_raw_decode_dft(
-        _to_device(raw[: per * t], pipe.device), ch, cfg.max_candidates,
-        cfg.max_symbols, pipe._max_out(), core_start, core_len,
-        sync_impl=cfg.sync_impl)
+    t -= t % (ch.p_in * (32 if cfg.use_pallas else 1))
+    return wideband_raw_decode(
+        _to_device(raw[: per * t], pipe.device), ch, fmt, cfg.use_pallas,
+        cfg.max_candidates, cfg.max_symbols, pipe._max_out(), core_start,
+        core_len, sync_impl=cfg.sync_impl)
 
 
 class Pipeline:
     """Decoder for one channel plan on one device.  device is where the
-    device stages run: a CUDA device uses the hand-written sync kernel,
-    the CPU the plain PyTorch versions."""
+    device stages run: a CUDA device uses the hand-written kernels (sync
+    scan, and the fused u8 channelizer under use_pallas), the CPU their
+    plain PyTorch versions."""
 
     def __init__(self, cfg: PipelineConfig, device):
         # resolve auto fields into a private copy; the caller's cfg keeps
@@ -179,16 +206,11 @@ class Pipeline:
         self.sdrclk = cfg.resolved_sdrclk()
         if cfg.mesh is not None:
             raise NotImplementedError("multi-device meshes are not ported")
-        if cfg.use_pallas:
-            raise NotImplementedError(
-                "the dense-channelizer ingest kernel is not ported")
         if cfg.filter_mode != "boxcar":
             raise NotImplementedError(
                 f"filter_mode={cfg.filter_mode!r} is not ported")
         if cfg.compute != "f32":
             raise NotImplementedError(f"compute={cfg.compute!r} is not ported")
-        if cfg.real_input:
-            raise NotImplementedError("real (airspy) input is not ported")
         if cfg.sync_impl == "xla":
             raise NotImplementedError('sync_impl="xla" is not ported')
         if cfg.sync_impl not in SYNC_IMPLS:
@@ -198,18 +220,20 @@ class Pipeline:
             from vdlm2dec_tpu.io.sdr import choose_fc
 
             cfg.fc_hz = choose_fc([int(f) for f in cfg.freqs_hz], cfg.fs)
-        self.f_offsets = [f - cfg.fc_hz for f in cfg.freqs_hz]
+        # an airspy real capture is mixed relative to F0 = Fc + fs/4
+        # (air.c:182-185)
+        f0 = cfg.fc_hz + cfg.fs / 4 if cfg.real_input else cfg.fc_hz
+        self.f_offsets = [f - f0 for f in cfg.freqs_hz]
         if cfg.chan_impl == "auto":
             cfg.chan_impl = resolve_chan_impl(
                 self.f_offsets, cfg.fs, self.sdrclk, cfg.lo_wrap,
                 cfg.filter_mode, cfg.use_pallas)
-        if cfg.chan_impl != "dft":
-            raise NotImplementedError(
-                f"chan_impl={cfg.chan_impl!r} is not ported: the port runs "
-                "the residue-space channelizer (25 kHz-raster plans, "
-                "lo_wrap=True)")
-        self.channelizer = Channelizer(self.f_offsets, fs=cfg.fs,
-                                       sdrclk=self.sdrclk, device=self.device)
+        if cfg.use_pallas and cfg.chan_impl in ("dft", "pfb"):
+            raise ValueError("use_pallas applies to the dense matmul "
+                             "channelizer only")
+        self.channelizer = Channelizer(
+            self.f_offsets, fs=cfg.fs, sdrclk=self.sdrclk,
+            lo_wrap=cfg.lo_wrap, impl=cfg.chan_impl, device=self.device)
 
     def _max_out(self) -> int:
         n = len(self.cfg.freqs_hz) * self.cfg.max_candidates
@@ -241,9 +265,11 @@ class Pipeline:
     def decode_wideband_u8(self, raw: np.ndarray, fmt: str = "cu8",
                            core_start: int = 0,
                            core_len: int = 0) -> list[dict]:
-        """Raw cu8 capture -> live candidate dicts, in one device program
-        and one fetch.  core_start/core_len restrict ownership to the
-        core region; t0 then returns core-relative."""
+        """Raw capture in its native format -> live candidate dicts, in
+        one device program and one fetch.  core_start/core_len restrict
+        ownership to the core region; t0 then returns core-relative.
+        Consecutive calls continue the LO phase (lo_wrap=False) from the
+        period cursor."""
         t_start = time.perf_counter()
         buf = dispatch_fused(self, raw, fmt, core_start, core_len).cpu().numpy()
         self._observe_packed(buf, time.perf_counter() - t_start)
@@ -256,15 +282,23 @@ class Pipeline:
 
     def stream_wideband_u8(self, raw: np.ndarray, block_seconds: float = 2.0,
                            fmt: str = "cu8"):
-        """Streaming decode of a cu8 capture (may be a np.memmap): fixed
-        overlapping raw blocks addressed by absolute position, each one
-        device program and one fetch, overlapped through PipelinedDecoder.
+        """Streaming decode of a capture in its native format (may be a
+        np.memmap): fixed overlapping raw blocks addressed by absolute
+        position, each one device program and one fetch, overlapped
+        through PipelinedDecoder.  Requires lo_wrap=True (the reference's
+        LO mode): the device program is then block-position independent.
         Yields lists of DecodedBurst per block."""
+        if not self.cfg.lo_wrap:
+            raise ValueError("fused streaming requires lo_wrap=True")
         ch = self.channelizer
         per, pad_val = RAW_FMT[fmt]
         p_in, p_out = ch.p_in, ch.p_out
+        # under use_pallas blocks are whole 32-period tiles, as in the JAX
+        # package: the longer right margin can change which triggers win
+        # a channel's candidate slots, so the packed rows follow it
         lmarg_p, _rmarg_p, core_p, total_p = stream_geometry(
-            p_in, p_out, self.cfg.fs, self.cfg.max_symbols, block_seconds)
+            p_in, p_out, self.cfg.fs, self.cfg.max_symbols, block_seconds,
+            align=32 if self.cfg.use_pallas else 1)
         lmarg_dec = lmarg_p * p_out
         core_dec = core_p * p_out
         t_samp = len(raw) // per
@@ -279,7 +313,7 @@ class Pipeline:
         def seg_bytes(i):
             lo = (i * core_p - lmarg_p) * p_in * per
             hi = lo + total_p * p_in * per
-            seg = np.full(hi - lo, pad_val, dtype=np.uint8)
+            seg = np.full(hi - lo, pad_val, dtype=raw.dtype)
             s_lo, s_hi = max(lo, 0), min(hi, per * t_samp)
             if s_hi > s_lo:
                 seg[s_lo - lo: s_hi - lo] = raw[s_lo:s_hi]
