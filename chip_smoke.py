@@ -31,13 +31,36 @@ Phases, each printed as one JSON line with the card's name and power limit:
   slice_formats the same traffic as cs16 (dft channelizer), as cf32
              (matmul channelizer) and the airspy capture (f32real, 6 Msps,
              real_input): frames equal to the truth, no overflow
+  kernel     (again) K1 on the decimated 2 s block of the bf16 dft route,
+             of the FIR route (stream_wideband's segment) and on the first
+             segment of the live FIR route (160 + core + one-burst margin)
+  slice_xla  stream_wideband_u8 with sync_impl="xla" (K1 in stream mode,
+             the flat demod on the materialized four-branch filter)
+  slice_bf16 compute="bf16" on the dft and matmul routes and --pallas
+  slice_fir  stream_wideband (host conversion, sample entry) with the FIR
+             filter on the dense channelizer: K1 per block, no K2
+  slice_nonfused  stream_wideband, boxcar, on cu8 (dft) and on cs16 with
+             use_pallas (the JAX CLI's route for --pallas --format cs16,
+             dense matmul, no K2)
+  live       stream_live from a pipe fed by a thread: cu8 with use_pallas
+             (the fused branch, K2) and the FIR filter (host conversion)
   cli        `python -m vdlm2dec_tpu_torch.cli ... -J -G -E -U` on the cu8
-             capture file (plain, and with --pallas) and on the airspy file
-             (--format f32real --fs 6000000); every CRC-valid frame of the
-             random-content traffic prints a JSON line, and the lines must
-             equal what Pipeline + FrameDecoder emit in-process
+             capture file (plain, --pallas, --sync-impl xla, --compute
+             bf16, --channel-filter fir, and --iq - with the file on
+             stdin) and on the airspy file (--format f32real --fs
+             6000000); every CRC-valid frame of the random-content traffic
+             prints a JSON line, and the lines must equal what Pipeline +
+             FrameDecoder emit in-process on the file (the CLI's own
+             route: fused, or stream_wideband for FIR)
+  cli_checkpoint  the CLI with --checkpoint stopped after two of its three
+             blocks (in-process, by a KeyboardInterrupt at the third), then
+             resumed as a process: the two outputs concatenate to the
+             uninterrupted run's bytes
 Each decode that drives the main path starts with every kernel's launch
 count at 0 and reads them when it ends; comparison launches do not count.
+Every such decode must decode frames equal to the stimulus truth with no
+slot overflow, launch K1 once per block and K2 once per block exactly on
+the fused use_pallas routes.
 Then the card line, the kernels' JSON line and, last, the result line.
 Any failed check raises (non-zero exit).  Without a CUDA card it exits 2
 and prints no result.
@@ -50,11 +73,14 @@ import sys
 
 sys.modules["jax"] = None        # the port must not need jax; fail loudly
 
+import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -63,8 +89,8 @@ import torch
 
 import bench
 from vdlm2dec_tpu_torch import _build, cli
-from vdlm2dec_tpu_torch._tables import (PipelineConfig, period_for,
-                                        stream_geometry)
+from vdlm2dec_tpu_torch._tables import (HALO_LEFT, PipelineConfig,
+                                        period_for, stream_geometry)
 from vdlm2dec_tpu_torch.host_decoder import FrameDecoder
 from vdlm2dec_tpu_torch.ops import chan_u8, sync
 from vdlm2dec_tpu_torch.ops.channelizer import Channelizer
@@ -187,16 +213,48 @@ def k1_case(card, y, **fields):
     return out
 
 
-def kernel_phase(card, raw, freqs, fc, block_seconds):
+def kernel_phase(card, raw, freqs, fc, block_seconds, route="dft",
+                 compute="f32"):
     """K1 at the decimated shape of one block of the dft route."""
-    ch = Channelizer([f - fc for f in freqs], fs=FS, device="cuda")
+    ch = Channelizer([f - fc for f in freqs], fs=FS, device="cuda",
+                     compute=compute)
     _l, _r, core_p, total_p = stream_geometry(
         ch.p_in, ch.p_out, FS, MAX_SYMBOLS, block_seconds)
     lo = core_p * ch.p_in * 2                  # block 1: traffic on both sides
     seg = torch.from_numpy(raw[lo: lo + total_p * ch.p_in * 2].copy())
     y = ch(*raw_to_planes_split(seg.cuda(), ch.p_in), split=True, period0=0)
     torch.cuda.synchronize()
-    return k1_case(card, y, route="dft", block_seconds=block_seconds)
+    return k1_case(card, y, route=route, block_seconds=block_seconds)
+
+
+def kernel_modes_phase(card, raw, reader, freqs, fc):
+    """K1 on the decimated 2 s block 1 of the bf16 dft route (split-phase
+    planes) and of the FIR route (stream_wideband's segment at its
+    absolute period), and on the first segment of the live FIR route:
+    two 2 s blocks channelized from the cursor, cut to 160 + core +
+    one-burst margin."""
+    offsets = [f - fc for f in freqs]
+    out = [kernel_phase(card, raw, freqs, fc, SLICE_BLOCK_S,
+                        route="bf16/dft", compute="bf16")]
+    ch = Channelizer(offsets, fs=FS, impl="matmul", filter_mode="fir",
+                     device="cuda")
+    lmarg_p, rmarg_p, core_p, _t = stream_geometry(
+        ch.p_in, ch.p_out, FS, MAX_SYMBOLS, SLICE_BLOCK_S)
+    lo_p = core_p - lmarg_p                    # block 1
+    y = ch.channelize(reader.read(lo_p * ch.p_in,
+                                  (lmarg_p + core_p + rmarg_p) * ch.p_in),
+                      period0=lo_p)
+    torch.cuda.synchronize()
+    out.append(k1_case(card, y, route="fir", block_seconds=SLICE_BLOCK_S))
+    rpb = core_p * ch.p_in
+    span = HALO_LEFT + core_p * ch.p_out + 24 + 8 * MAX_SYMBOLS
+    x = reader.read(0, 2 * rpb)
+    y = torch.cat([ch.channelize(x[:rpb], period0=0),
+                   ch.channelize(x[rpb:], period0=core_p)], dim=1)
+    torch.cuda.synchronize()
+    out.append(k1_case(card, y[:, :span].contiguous(), route="live/fir",
+                       block_seconds=SLICE_BLOCK_S))
+    return out
 
 
 def kernel_air_phase(card, real, air_freqs, air_fc):
@@ -317,12 +375,28 @@ def truth_in_span(truth, n_samples, fs):
 
 def decode_phase(card, phase, pipe, raw, fmt, n_samples, truth, **fields):
     """One counted main-path decode of a whole capture through
-    stream_wideband_u8: frames must equal the truth, no slot overflow,
-    and every kernel of the route launched once per block."""
+    stream_wideband_u8 (counted_decode)."""
+    per = len(raw) // n_samples
+
+    def stream(n):
+        return pipe.stream_wideband_u8(raw if n is None else raw[: per * n],
+                                       block_seconds=SLICE_BLOCK_S, fmt=fmt)
+
+    return counted_decode(card, phase, pipe, stream, n_samples, truth,
+                          k2=pipe.cfg.use_pallas, file_blocks=True, fmt=fmt,
+                          **fields)
+
+
+def counted_decode(card, phase, pipe, stream, n_samples, truth, k2,
+                   file_blocks, **fields):
+    """One counted main-path decode: stream(n) yields the burst lists of
+    the decode of the capture's first n samples (None: all of it).  The
+    frames must equal the truth, with no slot overflow; K1 (in the mode
+    the route runs) must be launched once per decoded block, K2 once per
+    block if k2 and never otherwise, and with file_blocks the blocks are
+    the capture's core blocks."""
     want = truth_in_span(truth, n_samples, pipe.cfg.fs)
-    warm = raw[: len(raw) // n_samples * pipe.core_raw_samples(SLICE_BLOCK_S)]
-    for _ in pipe.stream_wideband_u8(warm, block_seconds=SLICE_BLOCK_S,
-                                     fmt=fmt):
+    for _ in stream(pipe.core_raw_samples(SLICE_BLOCK_S)):
         pass                                   # builds tables, warms up
     torch.cuda.synchronize()
     pipe.metrics = cli.PipelineMetrics()
@@ -330,18 +404,19 @@ def decode_phase(card, phase, pipe, raw, fmt, n_samples, truth, **fields):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                           # counts of the main path
     t = time.perf_counter()
-    bursts = [b for bs in pipe.stream_wideband_u8(
-        raw, block_seconds=SLICE_BLOCK_S, fmt=fmt) for b in bs]
+    blocks = list(stream(None))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launched = main_path_launches()
     got = Counter((b.channel, bytes(bytearray(f[1:-3])))
-                  for b in bursts for f in b.frames)
+                  for bs in blocks for b in bs for f in b.frames)
     m = pipe.metrics
-    n_blocks = -(-n_samples // pipe.core_raw_samples(SLICE_BLOCK_S))
-    res = dict(fields, fmt=fmt, chan_impl=pipe.cfg.chan_impl,
-               use_pallas=pipe.cfg.use_pallas, fs=pipe.cfg.fs,
-               channels=len(pipe.cfg.freqs_hz), blocks=n_blocks,
+    n_blocks = len(blocks)
+    cfg = pipe.cfg
+    res = dict(fields, chan_impl=cfg.chan_impl, use_pallas=cfg.use_pallas,
+               sync_impl=cfg.sync_impl, compute=cfg.compute,
+               filter_mode=cfg.filter_mode, fs=cfg.fs,
+               channels=len(cfg.freqs_hz), blocks=n_blocks,
                frames=sum(got.values()), truth_bursts=sum(want.values()),
                recall=f"{sum((got & want).values())}/{sum(want.values())}",
                missed=sum((want - got).values()),
@@ -355,13 +430,125 @@ def decode_phase(card, phase, pipe, raw, fmt, n_samples, truth, **fields):
     what = f"{phase} {fields}"
     check(got == want, f"{what}: decoded frames differ from the truth")
     check(m.candidates_overflow == 0, f"{what}: decode slots overflowed")
+    if file_blocks:
+        want_blocks = -(-n_samples // pipe.core_raw_samples(SLICE_BLOCK_S))
+        check(n_blocks == want_blocks,
+              f"{what}: {n_blocks} blocks, want {want_blocks}")
+    check(n_blocks > 0, f"{what}: no block decoded")
     expect = {k: 0 for k in launched}
-    expect[f"sync_scan[{pipe.cfg.sync_impl}]"] = n_blocks
-    if pipe.cfg.use_pallas:
+    # "xla" takes its sync metric from K1's stream mode
+    k1 = "stream" if cfg.sync_impl == "xla" else cfg.sync_impl
+    expect[f"sync_scan[{k1}]"] = n_blocks
+    if k2:
         expect["chan_u8"] = n_blocks
     check(launched == expect,
           f"{what}: launches {launched}, want {expect} for {n_blocks} blocks")
     return launched
+
+
+def reader_stream(pipe, reader):
+    """stream(n) of stream_wideband over a CaptureReader: the host
+    converts each segment, and the channelizer's sample entry takes it
+    (the JAX CLI's route for the FIR filter and --pallas on non-cu8)."""
+    def stream(n):
+        x = reader if n is None else reader.read(0, n)
+        return pipe.stream_wideband(x, block_seconds=SLICE_BLOCK_S)
+    return stream
+
+
+def slice_xla_phase(card, raw, freqs, fc, truth):
+    """sync_impl="xla" on the default (dft) route."""
+    pipe = Pipeline(slice_config(freqs, fc, "xla"), device="cuda")
+    return decode_phase(card, "slice_xla", pipe, raw, "cu8", len(raw) // 2,
+                        truth, route="xla")
+
+
+def slice_bf16_phase(card, raw, freqs, fc, truth):
+    """compute="bf16" on the dft and matmul routes and under use_pallas
+    (where K2 ignores compute, as the JAX package's Pallas path)."""
+    launches = Counter()
+    for route, kw in (("dft", dict(chan_impl="dft")),
+                      ("matmul", dict(chan_impl="matmul")),
+                      ("pallas", dict(use_pallas=True))):
+        pipe = Pipeline(slice_config(freqs, fc, "stream", compute="bf16",
+                                     **kw), device="cuda")
+        launches.update(decode_phase(card, "slice_bf16", pipe, raw, "cu8",
+                                     len(raw) // 2, truth,
+                                     route=f"bf16/{route}"))
+    return launches
+
+
+def slice_fir_phase(card, reader, freqs, fc, truth):
+    """The FIR filter through stream_wideband (dense matmul, no K2)."""
+    pipe = Pipeline(slice_config(freqs, fc, "stream", filter_mode="fir"),
+                    device="cuda")
+    check(pipe.cfg.chan_impl == "matmul", "fir resolved to "
+          f"{pipe.cfg.chan_impl}")
+    return counted_decode(card, "slice_fir", pipe, reader_stream(pipe, reader),
+                          len(reader), truth, k2=False, file_blocks=True,
+                          fmt="cu8", route="fir")
+
+
+def slice_nonfused_phase(card, readers, freqs, fc, truth):
+    """stream_wideband with the boxcar filter: cu8 on the dft route, and
+    cs16 with use_pallas, which the JAX CLI sends to stream_wideband (the
+    fused u8 channelizer takes cu8 only): dense matmul, no K2."""
+    launches = Counter()
+    for fmt, kw in (("cu8", dict()), ("cs16", dict(use_pallas=True))):
+        pipe = Pipeline(slice_config(freqs, fc, "stream", **kw),
+                        device="cuda")
+        launches.update(counted_decode(
+            card, "slice_nonfused", pipe, reader_stream(pipe, readers[fmt]),
+            len(readers[fmt]), truth, k2=False, file_blocks=True, fmt=fmt,
+            route=f"stream_wideband/{fmt}"))
+    return launches
+
+
+def pipe_reader(path):
+    """The read end of a pipe that a thread fills with the file's bytes
+    (an rtl_sdr | decoder stand-in), and the thread."""
+    r, w = os.pipe()
+
+    def feed():
+        with open(path, "rb") as src, os.fdopen(w, "wb") as dst:
+            shutil.copyfileobj(src, dst, 1 << 20)
+
+    th = threading.Thread(target=feed, daemon=True)
+    th.start()
+    return os.fdopen(r, "rb"), th
+
+
+def live_phase(card, path, freqs, fc, truth):
+    """stream_live from a pipe: the fused branch (cu8, use_pallas: K2 and
+    K1 per block) and the host-conversion branch (FIR: K1 per decoded
+    segment of the rolling window)."""
+    launches = Counter()
+    n_samples = os.path.getsize(path) // 2
+    for route, kw in (("fused/pallas", dict(use_pallas=True)),
+                      ("fir", dict(filter_mode="fir"))):
+        pipe = Pipeline(slice_config(freqs, fc, "stream", **kw),
+                        device="cuda")
+        readers = []
+
+        def stream(n):
+            if n is not None:
+                with open(path, "rb") as fh:
+                    src = io.BytesIO(fh.read(2 * n))
+            else:
+                src, th = pipe_reader(path)
+                readers.append((src, th))
+            return pipe.stream_live(src, block_seconds=SLICE_BLOCK_S)
+
+        try:
+            launches.update(counted_decode(
+                card, "live", pipe, stream, n_samples, truth,
+                k2=pipe.cfg.use_pallas, file_blocks=False, fmt="cu8",
+                route=route))
+        finally:
+            for src, th in readers:
+                th.join(timeout=60)
+                src.close()
+    return launches
 
 
 def slice_pallas_phase(card, raw, freqs, fc, truth):
@@ -415,40 +602,100 @@ def slice_phase(card, raw, freqs, fc, truth):
     return launches
 
 
-def cli_phase(card, path, fmt, freqs, fc, extra=()):
-    """The CLI on a capture file vs the same decode in-process."""
-    argv = [*(f"{f / 1e6:.6f}" for f in freqs), "--iq", path,
+def cli_argv(path, freqs, fc, extra=()):
+    return [*(f"{f / 1e6:.6f}" for f in freqs), "--iq", path,
             "--fc", str(fc), "-J", "-G", "-E", "-U", "--start-time", "0",
             "-i", "SMOKE", *extra]
+
+
+def run_cli(argv, stdin_path=None):
+    """The CLI as a process: (stdout, wall seconds); raises unless it
+    exits 0."""
     t = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "vdlm2dec_tpu_torch.cli",
-                        *argv], capture_output=True, text=True,
-                       timeout=900, cwd=REPO)
+    with open(stdin_path or os.devnull, "rb") as stdin:
+        r = subprocess.run([sys.executable, "-m", "vdlm2dec_tpu_torch.cli",
+                            *argv], stdin=stdin, capture_output=True,
+                           text=True, timeout=900, cwd=REPO)
     wall = time.perf_counter() - t
     check(r.returncode == 0, f"cli exited {r.returncode}: {r.stderr[-2000:]}")
-    got = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    return r.stdout, wall
+
+
+def cli_phase(card, path, fmt, freqs, fc, extra=(), stdin=False) -> str:
+    """The CLI on a capture file (or, with stdin, on `--iq -` with the
+    file on its stdin) vs the decode of the file in-process through the
+    CLI's own route.  Returns the CLI's stdout."""
+    argv = cli_argv(path, freqs, fc, extra)
+    run_argv = cli_argv("-", freqs, fc, extra) if stdin else argv
+    out, wall = run_cli(run_argv, path if stdin else None)
+    got = [ln for ln in out.splitlines() if ln.strip()]
 
     args = cli.build_parser().parse_args(argv)
     check(args.format == fmt, f"cli format {args.format} != {fmt}")
     cfg = cli.pipeline_config(
         args, cli.validate_freqs([int(f * 1e6) for f in args.freqs]))
     log = io.StringIO()
-    out_cfg = cli.output_config(args, verbose=0)
-    out_cfg.logfile = log
-    dec = FrameDecoder(out_cfg, time_base=0.0)
+    dec = FrameDecoder(cli.output_config(args, log), time_base=0.0)
     pipe = Pipeline(cfg, device="cuda")
-    for bursts in pipe.stream_wideband_u8(
-            cli.CaptureReader(path, fmt).raw,
-            block_seconds=args.block_seconds, fmt=fmt):
+    reader = cli.CaptureReader(path, fmt)
+    if pipe.fused_route(fmt):
+        stream = pipe.stream_wideband_u8(
+            reader.raw, block_seconds=args.block_seconds, fmt=fmt)
+    else:
+        stream = pipe.stream_wideband(reader,
+                                      block_seconds=args.block_seconds)
+    for bursts in stream:
         for b in bursts:
             dec.process_burst(b)
     want = [ln for ln in log.getvalue().splitlines() if ln.strip()]
-    emit("cli", card, format=fmt, flags=list(extra), lines=len(got),
-         lines_in_process=len(want), identical=got == want, wall_s=wall,
-         block_seconds=args.block_seconds, max_symbols=cfg.max_symbols,
-         max_out=pipe._max_out(), chan_impl=pipe.cfg.chan_impl)
+    emit("cli", card, format=fmt, flags=list(extra), stdin=stdin,
+         lines=len(got), lines_in_process=len(want), identical=got == want,
+         wall_s=wall, block_seconds=args.block_seconds,
+         max_symbols=cfg.max_symbols, max_out=pipe._max_out(),
+         chan_impl=pipe.cfg.chan_impl, fused=pipe.fused_route(fmt))
     check(len(got) > 0, "the CLI printed no JSON line")
-    check(got == want, "CLI JSON lines differ from the in-process decode")
+    check(got == want, f"CLI JSON lines {extra} differ from the in-process "
+          "decode")
+    return out
+
+
+def cli_checkpoint_phase(card, path, freqs, fc, full: str):
+    """--checkpoint: the CLI's main() stopped after two of the three 4 s
+    blocks (a KeyboardInterrupt at the third block's metrics, as SIGINT
+    would land; in-process so that the stop is exact), then the CLI
+    process resumed from the checkpoint.  full: the uninterrupted run's
+    stdout, which the two outputs must concatenate to, byte for byte."""
+    with tempfile.TemporaryDirectory(prefix="vdl2_ckpt_") as tmp:
+        argv = cli_argv(path, freqs, fc,
+                        ["--checkpoint", os.path.join(tmp, "state.ckpt")])
+        orig = cli.PipelineMetrics.observe_bursts
+        seen = [0]
+
+        def stop_at_third(self, bursts):
+            if seen[0] == 2:
+                raise KeyboardInterrupt
+            seen[0] += 1
+            return orig(self, bursts)
+
+        part1 = io.StringIO()
+        cli.PipelineMetrics.observe_bursts = stop_at_third
+        try:
+            with contextlib.redirect_stdout(part1):
+                rc = cli.main(argv)
+        finally:
+            cli.PipelineMetrics.observe_bursts = orig
+        check(rc == 0, f"interrupted CLI run exited {rc}")
+        with open(os.path.join(tmp, "state.ckpt")) as fh:
+            cursor = json.load(fh)["sample_cursor"]
+        part2, wall = run_cli(argv)
+    n = [len([ln for ln in p.splitlines() if ln.strip()])
+         for p in (part1.getvalue(), part2, full)]
+    emit("cli_checkpoint", card, cursor=cursor, lines=n,
+         identical=part1.getvalue() + part2 == full, wall_s=wall)
+    check(cursor == 2 * 4 * FS, f"checkpoint cursor {cursor}")
+    check(n[0] > 0 and n[1] > 0, "a part of the resumed run printed nothing")
+    check(part1.getvalue() + part2 == full,
+          "stopped + resumed CLI output differs from the uninterrupted run")
 
 
 def main() -> int:
@@ -493,13 +740,30 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vdl2_smoke_") as tmp:
         path = os.path.join(tmp, "cap.cu8")
         raw.tofile(path)
+        cs16_path = os.path.join(tmp, "cap.cs16")
+        caps[0].tofile(cs16_path)
         air_path = os.path.join(tmp, "air.f32")
         caps[2].tofile(air_path)
-        cli_phase(card, path, "cu8", freqs, fc)
+        readers = {"cu8": cli.CaptureReader(path, "cu8"),
+                   "cs16": cli.CaptureReader(cs16_path, "cs16")}
+        k1.extend(kernel_modes_phase(card, raw, readers["cu8"], freqs, fc))
+        launches.update(slice_xla_phase(card, raw, freqs, fc, truth))
+        launches.update(slice_bf16_phase(card, raw, freqs, fc, truth))
+        launches.update(slice_fir_phase(card, readers["cu8"], freqs, fc,
+                                        truth))
+        launches.update(slice_nonfused_phase(card, readers, freqs, fc, truth))
+        launches.update(live_phase(card, path, freqs, fc, truth))
+        full = cli_phase(card, path, "cu8", freqs, fc)
         cli_phase(card, path, "cu8", freqs, fc, ["--pallas"])
         cli_phase(card, air_path, "f32real", air_freqs,
                   air_fc - AIR_FS // 4,
                   ["--format", "f32real", "--fs", str(AIR_FS)])
+        for extra in (["--sync-impl", "xla"], ["--compute", "bf16"],
+                      ["--channel-filter", "fir"]):
+            cli_phase(card, path, "cu8", freqs, fc, extra)
+        live_out = cli_phase(card, path, "cu8", freqs, fc, stdin=True)
+        check(live_out == full, "--iq - printed other lines than the file")
+        cli_checkpoint_phase(card, path, freqs, fc, full)
 
     kernels = []
     for mode in sync.MODES:

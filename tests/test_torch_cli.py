@@ -5,7 +5,8 @@ decode with jax blocked (sys.modules["jax"] = None): a subprocess runs the
 port's CLI that way on the CPU and its JSON lines must equal the JAX
 CLI's on the same capture, for both sync modes, every channelizer route
 (--pallas with JAX's Pallas kernel in interpret mode, --chan-impl matmul
-and pfb) and every capture format (cs16, cf32, f32real at 6 Msps).
+and pfb) and every capture format (cs16, cf32, f32real at 6 Msps).  The
+other flags are in tests/test_torch_cli_modes.py.
 """
 import functools
 import json
@@ -70,7 +71,7 @@ ARGS = ["136.975", "136.725", "--fc", str(FC), "--max-rows", "1",
         "--start-time", "1700000000"]
 
 
-def _run_port_cli(argv):
+def _run_port_cli(argv, stdin=None):
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "from vdlm2dec_tpu_torch import cli\n"
@@ -81,8 +82,8 @@ def _run_port_cli(argv):
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     return subprocess.run([sys.executable, "-c", code, *argv], env=env,
-                          capture_output=True, text=True, timeout=300,
-                          cwd=REPO)
+                          stdin=stdin, capture_output=True, text=True,
+                          timeout=300, cwd=REPO)
 
 
 def _assert_port_cli_matches_jax_cli(argv, capsys):
@@ -144,23 +145,13 @@ def test_port_cli_refuses_as_jax_cli(cap, flags, capsys):
     assert got == capsys.readouterr().err != ""
 
 
-@pytest.mark.parametrize("flag", [
-    ["--channel-filter", "fir"], ["--compute", "bf16"], ["--mesh", "1x4"],
-    ["--checkpoint", "ck.json"], ["--sync-impl", "xla"],
-    ["--pallas", "--format", "cs16"],
-])
+@pytest.mark.parametrize("flag", [["--mesh", "1x4"]])
 def test_port_cli_refuses_unported_flags(flag, capsys):
+    """Multi-device sharding is the one path not ported: exit 2."""
     from vdlm2dec_tpu_torch import cli
 
     with pytest.raises(SystemExit) as e:
         cli.main(["136.975", "--iq", "cap.cu8", "--device", "cpu", *flag])
     assert e.value.code == 2
-    assert "not supported by the PyTorch backend" in capsys.readouterr().err
-
-
-def test_port_cli_refuses_live_input(capsys):
-    from vdlm2dec_tpu_torch import cli
-
-    with pytest.raises(SystemExit):
-        cli.main(["136.975", "--iq", "-", "--device", "cpu"])
-    assert "--iq -" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--mesh" in err and "not supported by the PyTorch backend" in err

@@ -220,20 +220,25 @@ def test_abandoned_stream_stops_its_fetch_thread(capture):
 
 def test_unported_configs_raise():
     kw = dict(freqs_hz=[136_975_000.0], fc_hz=136_900_000.0)
-    for extra in (dict(sync_impl="xla"), dict(compute="bf16"),
-                  dict(filter_mode="fir"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            tpipe.Pipeline(PipelineConfig(**kw, **extra), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tpipe.Pipeline(PipelineConfig(**kw, mesh=object()), device="cpu")
     # what the JAX package refuses by assertion
     for extra in (dict(use_pallas=True, chan_impl="dft"),
                   dict(use_pallas=True, chan_impl="pfb"),
-                  dict(chan_impl="pfb", lo_wrap=False)):
+                  dict(chan_impl="pfb", lo_wrap=False),
+                  dict(chan_impl="dft", filter_mode="fir"),
+                  dict(compute="f16"), dict(sync_impl="pallas")):
         with pytest.raises(ValueError):
             tpipe.Pipeline(PipelineConfig(**kw, **extra), device="cpu")
-    with pytest.raises(ValueError):
-        next(tpipe.Pipeline(PipelineConfig(**kw, lo_wrap=False),
-                            device="cpu").stream_wideband_u8(
-            np.zeros(8000, np.uint8)))
+    for extra in (dict(lo_wrap=False), dict(filter_mode="fir")):
+        with pytest.raises(ValueError):
+            next(tpipe.Pipeline(PipelineConfig(**kw, **extra),
+                                device="cpu").stream_wideband_u8(
+                np.zeros(8000, np.uint8)))
+    with pytest.raises(ValueError):          # the fused program is boxcar
+        tpipe.Pipeline(PipelineConfig(**kw, filter_mode="fir"),
+                       device="cpu").decode_wideband_u8(
+            np.zeros(8000, np.uint8))
     pallas = tpipe.Pipeline(PipelineConfig(**kw, use_pallas=True),
                             device="cpu")
     with pytest.raises(ValueError):

@@ -52,12 +52,25 @@ def test_period_and_chan_impl_equal():
         assert T.resolve_chan_impl(*case) == jch.resolve_chan_impl(*case)
 
 
+@pytest.mark.parametrize("sdrclk, fs", [(500, 2_000_000), (1250, 5_000_000),
+                                        (1500, 6_000_000)])
+def test_fir_aggregation_matrix_equal(sdrclk, fs):
+    a_t, pad_t = T.fir_aggregation_matrix(sdrclk, fs)
+    a_j, pad_j = jch.fir_aggregation_matrix(sdrclk, fs)
+    assert pad_t == pad_j == 265
+    assert a_t.dtype == a_j.dtype == np.float32
+    assert a_t.shape == (T.period_for(sdrclk)[0] + 2 * 265, 84)
+    np.testing.assert_array_equal(a_t, a_j)
+
+
 def test_demod_tables_equal():
     np.testing.assert_array_equal(T.POLY32, jdemod._POLY32)
     np.testing.assert_array_equal(T.EXT_TAPS, jdemod._EXT_TAPS)
     np.testing.assert_array_equal(T.SW32, jdemod._SW32)
     np.testing.assert_array_equal(T.KS, jdemod._KS)
     assert T.SLOPE_NORM == jdemod._SLOPE_NORM
+    # the flat ("xla") demod's exact float32 Gray table, (257, 3)
+    np.testing.assert_array_equal(T.GRAY32, jdemod._GRAY32.T)
 
 
 def test_gray_soft_table_equals_jax_lookup():

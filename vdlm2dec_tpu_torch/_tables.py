@@ -63,6 +63,33 @@ def aggregation_matrix(sdrclk: int) -> np.ndarray:
     return a.astype(np.float32)
 
 
+def fir_aggregation_matrix(sdrclk: int, fs: int, n_taps: int = 531,
+                           cutoff_hz: float = 12_500.0,
+                           beta: float = 8.0) -> tuple[np.ndarray, int]:
+    """FIR alternative to the boxcar integrate-and-dump: the (P_in +
+    2 pad, 84) float32 Kaiser-windowed-sinc decimation matrix and pad.
+    Output m keeps the boxcar window's center as its instant; the taps
+    spill pad samples into the neighbouring periods."""
+    p_in, p_out = period_for(sdrclk)
+    owner = (21 * np.arange(p_in)) // sdrclk
+    centers = np.array(
+        [np.nonzero(owner == m)[0].mean() for m in range(p_out)])
+    pad = (n_taps - 1) // 2
+    n = np.arange(-pad, pad + 1)
+    x = 2.0 * cutoff_hz / fs * n
+    h = (2.0 * cutoff_hz / fs) * np.sinc(x)
+    h *= np.kaiser(n_taps, beta)
+    h /= h.sum()
+    a = np.zeros((p_in + 2 * pad, p_out), dtype=np.float64)
+    grid = np.arange(p_in + 2 * pad) - pad       # raw index within period
+    for m in range(p_out):
+        rel = grid - centers[m]
+        ok = np.abs(rel) <= pad
+        idx = np.round(rel[ok]).astype(int) + pad
+        a[ok, m] = h[idx]
+    return a.astype(np.float32), pad
+
+
 def lo_tables(f_offsets, fs: int, sdrclk: int,
               wrap: bool) -> tuple[np.ndarray, int]:
     """Per-channel base LO over one period, (C, P_in) complex64, and the
@@ -176,6 +203,7 @@ def resolve_chan_impl(f_offsets, fs: int, sdrclk: int, lo_wrap: bool = True,
 # ---------------------------------------------------------------- demod
 
 POLY32 = POLYPHASE.astype(np.float32)            # (4, 17) matched filter
+GRAY32 = GRAY_TABLES.T.astype(np.float32)        # (257, 3) exact soft bits
 SW32 = SYNC_PHASES.astype(np.float32)            # (17,) sync word phases
 KS = KEYSTREAM.astype(np.bool_)                  # descrambler keystream
 SLOPE_NORM = 408.0                               # sum_l (l-8)^2
@@ -357,10 +385,9 @@ class DecodedBurst:
 @dataclass
 class PipelineConfig:
     """The JAX package's PipelineConfig, field for field, so one config
-    drives both packages.  The port runs the fused streaming path (every
-    capture format, the dft / matmul / pfb channelizers, use_pallas) with
-    sync_impl "stream" or "fused" under compute "f32" and the boxcar
-    filter; the other values raise NotImplementedError in Pipeline."""
+    drives both packages.  The port runs every value of every field on
+    one device; only mesh (multi-device sharding) raises
+    NotImplementedError in Pipeline."""
     freqs_hz: list[float]                  # RF channel frequencies
     fs: int = 2_000_000                    # wideband input rate
     fc_hz: float | None = None             # center frequency (None: auto)

@@ -5,19 +5,47 @@ channel (the reference's perr/p2err hysteresis, d8psk.c:292-305);
 demod_candidates_inline demodulates a flat, channel-tagged candidate list
 straight from the decimated stream (filteredphase at the recovered timing
 phase, differential phase with CFO correction, Gray soft bits and the
-descrambler, d8psk.c:211-217 and 314-332).
+descrambler, d8psk.c:211-217 and 314-332).  demod_candidates_flat is the
+same demod reading the materialized four-branch filter output of
+polyphase_filter (the JAX package's sync_impl="xla" path).
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vdlm2dec_tpu.constants import SYNC_THRESHOLD
 
-from .._tables import EXT_TAPS, GRAY_SOFT, KS, POLY32
+from .._tables import EXT_TAPS, GRAY32, GRAY_SOFT, KS, POLY32
 from .sync import PI, TWO_PI
+
+_POLY = [[float(v) for v in row] for row in POLY32]
+
+
+def pack_complex(x: np.ndarray) -> np.ndarray:
+    """Host complex -> (..., 2) float32 re/im planes."""
+    return np.stack([np.asarray(x.real, np.float32),
+                     np.asarray(x.imag, np.float32)], axis=-1)
+
+
+def polyphase_filter(y: torch.Tensor) -> torch.Tensor:
+    """(C, T, 2) -> (C, 4, T, 2): the 17-tap matched filter at all four
+    polyphases; output t filters y[t-16 .. t] (zero history before the
+    stream), summed over the taps in ascending order, as JAX's
+    polyphase_filter (vdlm2dec_tpu/ops/demod.py:88-112).  Branch 0 is
+    ops.sync.polyphase_filter0."""
+    t = y.shape[1]
+    yp = F.pad(y, (0, 0, 16, 0))
+    acc = [None] * 4
+    for j in range(17):
+        seg = yp[:, j:j + t]
+        for phi in range(4):
+            term = _POLY[phi][j] * seg
+            acc[phi] = term if acc[phi] is None else acc[phi] + term
+    return torch.stack(acc, dim=1)
 
 
 def find_triggers(err: torch.Tensor, fr: torch.Tensor, max_candidates: int,
@@ -73,7 +101,72 @@ def find_triggers(err: torch.Tensor, fr: torch.Tensor, max_candidates: int,
 @functools.lru_cache(maxsize=None)
 def _demod_tables(device: torch.device) -> tuple[torch.Tensor, ...]:
     return tuple(torch.as_tensor(a, device=device)
-                 for a in (EXT_TAPS, POLY32, GRAY_SOFT, KS))
+                 for a in (EXT_TAPS, POLY32, GRAY_SOFT, KS, GRAY32))
+
+
+def _clk0(of: torch.Tensor) -> torch.Tensor:
+    """Rounded timing offset in 0..12; NaN offsets (empty slots: a 0/0
+    parabola) count as 0, as XLA's float -> int conversion makes them."""
+    return torch.nan_to_num(torch.clamp(torch.floor(of + 0.5), 0, 12),
+                            nan=0.0).to(torch.int64)
+
+
+def _soft_bits(p: torch.Tensor, p1: torch.Tensor, df: torch.Tensor,
+               gray: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+    """Symbol phases p (M, ms) and the phase before the first symbol p1
+    (M,) -> (M, 3 ms) descrambled soft bits: differential phase minus
+    the CFO df, wrapped to [-pi, pi], quantized to a Gray table index."""
+    m = p.shape[0]
+    pprev = torch.cat([p1[:, None], p[:, :-1]], dim=1)
+    d = (p - pprev) - df[:, None]
+    d = torch.where(d > PI, d - TWO_PI, d)
+    d = torch.where(d < -PI, d + TWO_PI, d)
+    # (true division by a 0-dim tensor: CUDA divides by a Python scalar
+    # through its reciprocal)
+    gi = torch.nan_to_num(
+        torch.clamp(torch.floor(128.0 * d / d.new_tensor(PI) + 128.0 + 0.5),
+                    0, 256),
+        nan=0.0).to(torch.int64)
+    soft = gray[gi].reshape(m, -1)                   # (M, ms*3)
+    return torch.where(ks[None, : soft.shape[1]], 1.0 - soft, soft)
+
+
+def demod_candidates_flat(y: torch.Tensor, chan: torch.Tensor,
+                          t0: torch.Tensor, of: torch.Tensor,
+                          df: torch.Tensor, max_symbols: int,
+                          f_all: torch.Tensor) -> torch.Tensor:
+    """(C, T, 2) stream, M candidates and f_all = polyphase_filter(y)
+    (C, 4, T, 2) -> (M, 3 * max_symbols) descrambled soft bits, as JAX's
+    demod_candidates_flat (vdlm2dec_tpu/ops/demod.py:301-343).
+
+    Symbol k is f_all at the candidate's polyphase clk0 % 4 and position
+    t0 + s1 + 8k (zero past the stream); the phase before the first
+    symbol filters y[t0-16 .. t0] with the clk0-extended taps.  The
+    soft bits come from the exact float32 Gray table, not the split
+    bfloat16 lookup of the inline demod.  Out-of-range channel and
+    window starts clamp, as XLA's dynamic_slice and gather do."""
+    ext_taps, _poly, _gray_soft, ks, gray = _demod_tables(y.device)
+    c, t, _ = y.shape
+    ms = max_symbols
+    ci = torch.clamp(chan.to(torch.int64), 0, c - 1)
+    clk0 = _clk0(of)
+    # window of 17 starting at t0 in the 16-left-padded stream
+    ypad = F.pad(y, (0, 0, 16, 0))
+    start = torch.clamp(t0.to(torch.int64), 0, t - 1)
+    idx = start[:, None] + torch.arange(17, device=y.device)
+    win = ypad[ci[:, None], idx]                     # (M, 17, 2)
+    s1v = (win * ext_taps[clk0][:, :, None]).sum(dim=1)
+    p1 = torch.atan2(s1v[:, 1], s1v[:, 0])
+    s1 = (32 - clk0 + 3) // 4
+    overrun = 7 + 8 * ms
+    pos = (t0.to(torch.int64) + s1)[:, None] \
+        + 8 * torch.arange(ms, device=y.device)
+    pos = torch.clamp(pos, 0, t + overrun - 1)
+    inside = (pos < t)[..., None]
+    f = f_all[ci[:, None], (clk0 % 4)[:, None], torch.clamp(pos, max=t - 1)]
+    f = torch.where(inside, f, torch.zeros_like(f))  # (M, ms, 2)
+    p = torch.atan2(f[..., 1], f[..., 0])
+    return _soft_bits(p, p1, df, gray, ks)
 
 
 def demod_candidates_inline(y: torch.Tensor, chan: torch.Tensor,
@@ -88,14 +181,12 @@ def demod_candidates_inline(y: torch.Tensor, chan: torch.Tensor,
     symbol k sits at window sample s1 + 8k with s1 = (35 - clk0) // 4 in
     5..8, and the phase before the first symbol comes from the trigger-
     time filteredphase with the clk0-extended taps."""
-    ext_taps, poly, gray, ks = _demod_tables(y.device)
+    ext_taps, poly, gray, ks, _gray32 = _demod_tables(y.device)
     ms = max_symbols
     win_len = 8 * (ms + 4)          # covers s1 + 8*ms + 17
     ypad = F.pad(y, (0, 0, 16, win_len))
     m = chan.shape[0]
-    # NaN timing offsets (empty slots: 0/0 parabola) count as 0
-    clk0 = torch.nan_to_num(torch.clamp(torch.floor(of + 0.5), 0, 12),
-                            nan=0.0).to(torch.int64)
+    clk0 = _clk0(of)
     phi = clk0 % 4
     s1 = (32 - clk0 + 3) // 4
 
@@ -119,16 +210,5 @@ def demod_candidates_inline(y: torch.Tensor, chan: torch.Tensor,
              (s1 % 8)[:, None]]                      # (M, ms, 2)
 
     p = torch.atan2(sym[..., 1], sym[..., 0])
-    pprev = torch.cat([p1[:, None], p[:, :-1]], dim=1)
-    d = (p - pprev) - df[:, None]
-    d = torch.where(d > PI, d - TWO_PI, d)
-    d = torch.where(d < -PI, d + TWO_PI, d)
-    # (true division by a 0-dim tensor: CUDA divides by a Python scalar
-    # through its reciprocal)
-    gi = torch.nan_to_num(
-        torch.clamp(torch.floor(128.0 * d / d.new_tensor(PI) + 128.0 + 0.5),
-                    0, 256),
-        nan=0.0).to(torch.int64)
-    soft = gray[gi].reshape(m, -1)                   # (M, ms*3)
-    return torch.where(ks[None, : soft.shape[1]], 1.0 - soft, soft)
+    return _soft_bits(p, p1, df, gray, ks)
 

@@ -7,17 +7,22 @@ at 2 Msps) cut to 6 s, and the block is block 1 of a stream of 2 s
 blocks, taken with each route's own geometry (32-period tiles under
 use_pallas) and the slice's decode sizes.  For each channelizer route of
 the fused streaming path (dft, matmul, pfb, and use_pallas, which is
-matmul through the fused u8 channelizer kernel) it prints one JSON line
-of CUDA-event times, with the raw block already on the card:
+matmul through the fused u8 channelizer kernel), for compute="bf16" on
+the dft and matmul routes, for sync_impl="xla" (dft) and for the FIR
+filter (dense matmul) it prints one JSON line of CUDA-event times, with
+the raw block already on the card:
 
   front_ms    channelize_raw: ingest + channelizer (median of 10 after
               3 warm-ups)
   program_ms  wideband_raw_decode: the whole device program (median of
               5 after 2 warm-ups)
 
-Two passes, the second in the opposite route order, so a drift of the
-card's clocks shows as a difference between passes.  The first line is
-the card's name and power limit.  Exits 2 without a CUDA card.
+The FIR route's front here is the device part only: on the decoder's
+path (stream_wideband) the host converts each segment to complex
+samples first.  Two passes, the second in the opposite route order, so a
+drift of the card's clocks shows as a difference between passes.  The
+first line is the card's name and power limit.  Exits 2 without a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -40,6 +45,10 @@ ROUTES = {
     "matmul": {"chan_impl": "matmul"},
     "pfb": {"chan_impl": "pfb"},
     "pallas": {"use_pallas": True},
+    "dft_bf16": {"chan_impl": "dft", "compute": "bf16"},
+    "matmul_bf16": {"chan_impl": "matmul", "compute": "bf16"},
+    "xla": {"chan_impl": "dft", "sync_impl": "xla"},
+    "fir": {"chan_impl": "matmul", "filter_mode": "fir"},
 }
 
 
@@ -79,7 +88,9 @@ def route_times(pipe: Pipeline, raw: np.ndarray) -> dict:
                             core_p * ch.p_out, sync_impl=cfg.sync_impl)
 
     return dict(chan_impl=cfg.chan_impl, use_pallas=cfg.use_pallas,
-                periods=total_p, front_ms=cuda_ms(front, 10, 3),
+                compute=cfg.compute, sync_impl=cfg.sync_impl,
+                filter_mode=cfg.filter_mode, periods=total_p,
+                front_ms=cuda_ms(front, 10, 3),
                 program_ms=cuda_ms(program, 5, 2))
 
 
