@@ -7,21 +7,34 @@ Phases, each printed as one JSON line with the card's name and power limit:
   card       nvidia-smi name and power limit, torch and CUDA versions
   build      nvcc of vdlm2dec_tpu_torch/csrc (one process per source, in
              parallel, then one link) into a ctypes library
+  deframer   g++ of csrc/hostdec.cpp into the native deframer's library,
+             which must build and load here: the Python deframer the
+             package may use where there is no compiler is not accepted
   capture    8 channels x 2 Msps x 10 s of impaired rtl_sdr cu8 traffic
-             (bench.make_capture: ~9 bursts/s/channel), and 4 channels x
+             (stimulus.make_capture: ~9 bursts/s/channel), and 4 channels x
              6 Msps x 2 s of the same traffic as an airspy real capture
   kernel     the sync-scan kernel (K1) against its plain PyTorch version,
              both modes, on the decimated streams of every block shape the
              main path gives it: the dft route's 2 s and 4 s blocks, K2's
              32-period-aligned 2 s block (slice_pallas) and 4 s block (the
-             CLI's --pallas run), and the airspy slice's 6 Msps block: max
-             abs / rel difference, trigger sets, CUDA-event times
+             CLI's --pallas run), the airspy slice's 6 Msps block, and
+             the 64-period 6 Msps output of K2 (a stream short enough to
+             take the kernel's small tiles): bit for bit equal to the
+             plain version of each mode, trigger sets, and four times:
+             `ms`, the kernel's own (20 launches in one CUDA graph, the
+             median replay), `cold_ms`, the same with every launch on
+             another copy of the input so that none is read from the L2
+             cache (null for a small input), `event_ms`, one launch
+             between two events with the wrapper's host work in it, and
+             `plain_ms`
   kernel_k2  the fused u8 channelizer kernel (K2) against its plain
              version on capture bytes at the 2 s block of slice_pallas
              (8 ch, B = 2528 periods of 2000 samples) for both LO modes,
              at the 4 s block of the CLI's --pallas run (B = 4544), and at
              6 Msps (4 ch, 64 periods of 6000): max abs difference, the K1
-             trigger sets of both outputs, CUDA-event times
+             trigger sets of both outputs, the same four times, and
+             `dense_route_ms`, the dense matmul route (several PyTorch
+             calls: ingest, mix, torch.matmul) on the same bytes
   slice      Pipeline.stream_wideband_u8 over the whole cu8 capture for
              sync_impl stream and fused (residue-space channelizer, 2 s
              blocks, 64 trigger slots per channel, 512 decode slots, 8-row
@@ -61,13 +74,16 @@ count at 0 and reads them when it ends; comparison launches do not count.
 Every such decode must decode frames equal to the stimulus truth with no
 slot overflow, launch K1 once per block and K2 once per block exactly on
 the fused use_pallas routes.
-Then the card line, the kernels' JSON line and, last, the result line.
+Then the card line, the kernels' JSON line (each kernel's time on the
+first block shape above beside its bound: the larger of its bytes over
+3.35 TB/s and its float32 operations over 67 TFLOP/s, from
+vdlm2dec_tpu_torch/kernel_times.py; no single PyTorch call computes
+either function, so `library_ms` is null) and, last, the result line.
 Any failed check raises (non-zero exit).  Without a CUDA card it exits 2
 and prints no result.
 
-It imports only the port and, for the stimulus, bench.make_capture and
-bench.to_u8 (bench imports jax only inside its benchmark functions), so
-it runs from the repository root and nowhere else.
+It imports only the port (the stimulus included: its stimulus module),
+so it runs from the repository root and nowhere else.
 """
 import sys
 
@@ -87,11 +103,13 @@ from collections import Counter
 import numpy as np
 import torch
 
-import bench
-from vdlm2dec_tpu_torch import _build, cli
+from vdlm2dec_tpu_torch import _build, cli, stimulus
 from vdlm2dec_tpu_torch._tables import (HALO_LEFT, PipelineConfig,
                                         period_for, stream_geometry)
-from vdlm2dec_tpu_torch.host_decoder import FrameDecoder
+from vdlm2dec_tpu_torch.host import native
+from vdlm2dec_tpu_torch.host.decoder import FrameDecoder
+from vdlm2dec_tpu_torch.kernel_times import (card_string, cold_ms, event_ms,
+                                             graph_ms, k1_bound, k2_bound)
 from vdlm2dec_tpu_torch.ops import chan_u8, sync
 from vdlm2dec_tpu_torch.ops.channelizer import Channelizer
 from vdlm2dec_tpu_torch.ops.demod import find_triggers
@@ -107,11 +125,11 @@ MAX_CANDIDATES = 64
 MAX_OUT = 512
 SLICE_BLOCK_S = 2.0
 # kernel vs plain version: the same float32 operations in the same order
-# (no FMA contraction in the kernel); stream mode's atan2f may round
-# differently from torch.atan2 in the last ulp, which err (17 squared
-# residuals) carries at rtol ~1e-6.  Stated as tests/test_fused_sync.py's.
+# (no FMA contraction in the kernel), so the two must agree bit for bit.
+# The tolerance (tests/test_fused_sync.py's) only says where a trigger may
+# flip between two streams that differ, as K2's output and its plain
+# version's do.
 ERR_TOL = (1e-4, 1e-4)           # (rtol, atol)
-FR_TOL = (1e-4, 1e-5)
 KERNEL_SOURCE = "vdlm2dec_tpu_torch/csrc/sync_scan.cu"
 REPLACES = "vdlm2dec_tpu/ops/pallas_sync.py:82"
 # K2 vs its plain version: |x lo| <= 181 and each output sums ~24-72
@@ -120,6 +138,9 @@ REPLACES = "vdlm2dec_tpu/ops/pallas_sync.py:82"
 K2_ATOL = 1e-3
 K2_SOURCE = "vdlm2dec_tpu_torch/csrc/chan_u8.cu"
 K2_REPLACES = "vdlm2dec_tpu/ops/pallas_channelizer.py:33"
+# of a kernel's first case, into the kernels line
+KERNEL_KEYS = ("shape", "ms", "cold_ms", "event_ms", "plain_ms", "bound_ms",
+               "bound_by")
 AIR_FS = 6_000_000
 AIR_CHAN = 4
 AIR_SECONDS = 2.0
@@ -134,29 +155,9 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def card_string() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, n: int = 10, warm: int = 3) -> float:
-    """Median of n CUDA-event timings of fn() after warm-up, in ms."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+def cuda_ms(fn) -> float:
+    """Median of 10 CUDA-event timings of one fn() each, in ms."""
+    return event_ms(fn, n=10)
 
 
 def trigger_diff(err_a, fr_a, err_b, fr_b) -> tuple[int, int]:
@@ -179,9 +180,10 @@ def trigger_diff(err_a, fr_a, err_b, fr_b) -> tuple[int, int]:
     return len(sets[0]), len(flips)
 
 
-def k1_case(card, y, **fields):
+def k1_case(card, y, need_triggers=True, **fields):
     """K1 against its plain versions, both modes, on the decimated
-    streams y (C, T, 2) of one block."""
+    streams y (C, T, 2) of one block (which must hold a trigger unless
+    need_triggers is false)."""
     out = {}
     for mode in sync.MODES:
         ref = sync.sync_scan_fused_ref if mode == "fused" \
@@ -191,24 +193,23 @@ def k1_case(card, y, **fields):
         torch.cuda.synchronize()
         d_err = (err_k - err_p).abs()
         d_fr = (fr_k - fr_p).abs()
-        for d, want, (rtol, atol), name in ((d_err, err_p, ERR_TOL, "err"),
-                                           (d_fr, fr_p, FR_TOL, "fr")):
-            check(bool((d <= atol + rtol * want.abs()).all()),
-                  f"{mode} {name} outside rtol={rtol} atol={atol}")
         n_trig, n_flip = trigger_diff(err_k, fr_k, err_p, fr_p)
-        check(n_trig > 0, f"{mode}: no triggers in the block")
-        ms = cuda_ms(lambda: sync.sync_scan(y, mode))
-        plain_ms = cuda_ms(lambda: ref(y))
         res = dict(fields, mode=mode, shape=list(y.shape),
                    err_max_abs=float(d_err.max()),
-                   err_max_rel=float((d_err / err_p.abs().clamp(min=1e-30)).max()),
                    fr_max_abs=float(d_fr.max()),
-                   fr_max_rel=float((d_fr / fr_p.abs().clamp(min=1e-30)).max()),
                    bit_exact=bool(torch.equal(err_k, err_p)
                                   and torch.equal(fr_k, fr_p)),
                    triggers=n_trig, trigger_flips_near_threshold=n_flip,
-                   ms=ms, plain_ms=plain_ms)
+                   ms=graph_ms(lambda: sync.sync_scan(y, mode)),
+                   cold_ms=cold_ms(lambda v: sync.sync_scan(v, mode), y),
+                   event_ms=cuda_ms(lambda: sync.sync_scan(y, mode)),
+                   plain_ms=cuda_ms(lambda: ref(y)),
+                   **k1_bound(y.shape[0], y.shape[1], mode))
         emit("kernel", card, **res)
+        check(res["bit_exact"], f"{mode}: K1 differs from its plain version "
+              f"(err by {res['err_max_abs']}, fr by {res['fr_max_abs']})")
+        check((n_trig > 0 or not need_triggers) and n_flip == 0,
+              f"{mode}: {n_trig} triggers, {n_flip} differ")
         out[mode] = res
     return out
 
@@ -306,13 +307,20 @@ def k2_case(card, raw, offsets, fs, lo_wrap, b, period0, with_triggers,
     res = dict(fields, shape=[n_chan, b, ch.p_in], fs=fs, lo_wrap=lo_wrap,
                max_abs_err=err,
                max_abs=float(y_p.abs().max()),
-               ms=cuda_ms(lambda: chan_u8.channelize_u8(*args)),
-               plain_ms=cuda_ms(lambda: chan_u8.channelize_u8_ref(*args)))
+               ms=graph_ms(lambda: chan_u8.channelize_u8(*args)),
+               cold_ms=cold_ms(
+                   lambda v: chan_u8.channelize_u8(v, *args[1:]), seg),
+               event_ms=cuda_ms(lambda: chan_u8.channelize_u8(*args)),
+               plain_ms=cuda_ms(lambda: chan_u8.channelize_u8_ref(*args)),
+               dense_route_ms=cuda_ms(
+                   lambda: channelize_raw(seg, ch, "cu8", False)),
+               **k2_bound(n_chan, b, ch.p_in, ch.p_out))
     if with_triggers:
         ys = [y.reshape(n_chan, -1, 2) for y in (y_k, y_p)]
         (err_k, fr_k), (err_p, fr_p) = (sync.sync_scan(y) for y in ys)
         n_trig, n_flip = trigger_diff(err_k, fr_k, err_p, fr_p)
-        check(n_trig > 0, "K2: no triggers in the block")
+        check(n_trig > 0 and n_flip == 0, f"K2: {n_trig} triggers, "
+              f"{n_flip} differ between its output and its plain version's")
         res.update(triggers=n_trig, trigger_flips_near_threshold=n_flip)
     emit("kernel_k2", card, **res)
     return res, y_k
@@ -345,9 +353,12 @@ def kernel_k2_phase(card, raw, freqs, fc, air_u8, air_offsets):
                               route="pallas", block_seconds=block_s))
     air_p_in = 4 * (AIR_FS // 4000)
     lo = len(air_u8) // (4 * air_p_in) * 2 * air_p_in      # mid-capture
-    res, _y = k2_case(card, air_u8[lo: lo + 64 * air_p_in * 2], air_offsets,
-                      AIR_FS, True, 64, lo // (2 * air_p_in), False)
+    res, y = k2_case(card, air_u8[lo: lo + 64 * air_p_in * 2], air_offsets,
+                     AIR_FS, True, 64, lo // (2 * air_p_in), False)
     k2.append(res)
+    # a stream this short takes K1's 256-position tiles, the others 1024
+    k1.append(k1_case(card, y.reshape(len(air_offsets), -1, 2),
+                      need_triggers=False, route="pallas/short", fs=AIR_FS))
     return k2, k1
 
 
@@ -716,9 +727,18 @@ def main() -> int:
                 if "registers" in ln])
 
     t = time.perf_counter()
-    wide, freqs, fc, truth = bench.make_capture(FS, N_CHAN, SECONDS)
-    raw = bench.to_u8(wide)
-    air_wide, air_freqs, air_fc, air_truth = bench.make_capture(
+    built = native.native_available()
+    emit("deframer", card,
+         deframer="native C++ (csrc/hostdec.cpp)" if built
+         else "Python Unstuffer",
+         library=str(native.library_path()) if built else None,
+         build_s=time.perf_counter() - t)
+    check(built, "the native deframer did not build or load")
+
+    t = time.perf_counter()
+    wide, freqs, fc, truth = stimulus.make_capture(FS, N_CHAN, SECONDS)
+    raw = stimulus.to_u8(wide)
+    air_wide, air_freqs, air_fc, air_truth = stimulus.make_capture(
         AIR_FS, AIR_CHAN, AIR_SECONDS)
     caps = format_captures(wide, air_wide)
     emit("capture", card, channels=N_CHAN, seconds=SECONDS, fc=fc,
@@ -727,7 +747,7 @@ def main() -> int:
          synth_s=time.perf_counter() - t)
 
     kern = {s: kernel_phase(card, raw, freqs, fc, s) for s in (2.0, 4.0)}
-    k2, k1 = kernel_k2_phase(card, raw, freqs, fc, bench.to_u8(air_wide),
+    k2, k1 = kernel_k2_phase(card, raw, freqs, fc, stimulus.to_u8(air_wide),
                              [f - air_fc for f in air_freqs])
     k1.append(kernel_air_phase(card, caps[2], air_freqs, air_fc))
     # launches of the main-path decodes, each counted from 0
@@ -773,12 +793,13 @@ def main() -> int:
             replaces=REPLACES, launches=launches[f"sync_scan[{mode}]"],
             max_abs_err=max(max(c["err_max_abs"], c["fr_max_abs"])
                             for c in cases),
-            ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"]))
+            **{key: cases[0][key] for key in KERNEL_KEYS}, library_ms=None))
     kernels.append(dict(
         name="chan_u8", route="cuda", source=K2_SOURCE, replaces=K2_REPLACES,
         launches=launches["chan_u8"],
         max_abs_err=max(c["max_abs_err"] for c in k2),
-        ms=k2[0]["ms"], plain_ms=k2[0]["plain_ms"]))
+        **{key: k2[0][key] for key in KERNEL_KEYS}, library_ms=None,
+        dense_route_ms=k2[0]["dense_route_ms"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     print(card)

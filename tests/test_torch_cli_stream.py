@@ -32,7 +32,7 @@ from test_torch_cli_modes import _jax_cli, _lines
 from vdlm2dec_tpu.host.checkpoint import load_checkpoint
 from vdlm2dec_tpu.host.flights import FlightTracker
 from vdlm2dec_tpu.io.sdr import write_capture
-from vdlm2dec_tpu.metrics import PipelineMetrics
+from vdlm2dec_tpu_torch.metrics import PipelineMetrics
 
 
 def test_port_cli_udp_json_matches_jax_cli(cap, capsys, monkeypatch):
@@ -179,6 +179,43 @@ def test_port_cli_sigterm_drains_and_exits(tmp_path):
     lines = _lines(log.read_text())
     assert len(lines) == 1
     assert json.loads(lines[0])["text"] == "TERM TEST"
+
+
+def test_live_stdin_reads_whole_blocks_and_polls():
+    """cli._LiveStdin.read(n): n bytes across short pipe reads, the rest
+    at end of stream, then b""; while the pipe is quiet it returns to the
+    interpreter every POLL_S, which is when the main thread runs the
+    handler of a signal that the OS delivered to another thread."""
+    from vdlm2dec_tpu_torch import cli
+
+    r, w = os.pipe()
+    live = cli._LiveStdin(r)
+    polls = []
+    real_select = cli.select.select
+
+    def counting_select(*args):
+        polls.append(args[3])
+        return real_select(*args)
+
+    def feed():
+        for part in (b"ab", b"cdef", b"g"):
+            threading.Event().wait(0.3)
+            os.write(w, part)
+        os.close(w)
+
+    th = threading.Thread(target=feed)
+    cli.select.select = counting_select
+    try:
+        th.start()
+        assert live.read(5) == b"abcde"
+        assert live.read(5) == b"fg"
+        assert live.read(5) == b""
+    finally:
+        cli.select.select = real_select
+        th.join(timeout=10)
+        os.close(r)
+    assert not th.is_alive()
+    assert len(polls) >= 4 and set(polls) == {cli._LiveStdin.POLL_S}
 
 
 SDR_CASES = [

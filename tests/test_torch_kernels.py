@@ -48,12 +48,16 @@ def test_cpu_tensor_takes_plain_version(mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 211_848), (3, 1_000), (1, 130)])
+@pytest.mark.parametrize("shape", [(8, 211_848), (3, 1_000), (1, 130),
+                                   (2, 1_024), (1, 1_025), (5, 2_047),
+                                   (1, 1)])
 @pytest.mark.parametrize("mode", sync.MODES)
 def test_sync_kernel_matches_plain_on_card(mode, shape):
     """On a CUDA tensor the wrapper launches csrc/sync_scan.cu (one launch
-    counted) and agrees with the plain version of its mode, including
-    ragged tile edges and a stream shorter than the sync window."""
+    counted) and agrees with the plain version of its mode: at the 2 s
+    block, at streams shorter than one 1024-position tile and than the
+    sync window, at exactly one tile, one past it and one short of two,
+    and with a single channel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the sync kernel has no CPU mode")
     y = torch.tensor(_stream(shape, 3), device="cuda")
@@ -76,13 +80,13 @@ def test_stream_decode_on_second_card_matches_first():
     waits for that copy, and the frames equal cuda:0's and the truth."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
-    import bench
+    from vdlm2dec_tpu_torch import stimulus
     from vdlm2dec_tpu_torch._tables import PipelineConfig
     from vdlm2dec_tpu_torch.pipeline import Pipeline
 
     fs = 2_000_000
-    wide, freqs, fc, truth = bench.make_capture(fs, 2, 1.0)
-    raw = bench.to_u8(wide[: len(wide) - len(wide) % 2000])
+    wide, freqs, fc, truth = stimulus.make_capture(fs, 2, 1.0)
+    raw = stimulus.to_u8(wide[: len(wide) - len(wide) % 2000])
     frames = {}
     for dev in ("cuda:0", "cuda:1"):
         cfg = PipelineConfig(freqs_hz=[float(f) for f in freqs], fs=fs,
@@ -149,17 +153,48 @@ def test_aggregation_windows_rebuild_the_matrix(sdrclk):
             chan_u8.aggregation_windows(np.ascontiguousarray(bad))
 
 
+@pytest.mark.parametrize("sdrclk", [500, 1250, 1500])
+def test_window_slots_transpose_the_windows(sdrclk):
+    """The kernel's shared-memory layout: input n, the i-th of window k,
+    sits at i * pitch + k of a (maxlen, pitch) plane with an odd pitch >=
+    K, every input at a place of its own, the windows' first inputs side
+    by side in row 0."""
+    starts, _w = chan_u8.aggregation_windows(aggregation_matrix(sdrclk))
+    slots, pitch, maxlen = chan_u8.window_slots(starts)
+    k_out = len(starts) - 1
+    assert slots.dtype == np.int32 and slots.shape == (4 * sdrclk,)
+    assert pitch % 2 == 1 and k_out <= pitch <= k_out + 1
+    assert maxlen == np.diff(starts).max() == -(-4 * sdrclk // k_out)
+    plane = np.full(maxlen * pitch, -1)
+    plane[slots] = np.arange(4 * sdrclk)
+    assert (plane >= 0).sum() == 4 * sdrclk       # no two inputs collide
+    plane = plane.reshape(maxlen, pitch)
+    assert (plane[:, k_out:] == -1).all()
+    for k in range(k_out):
+        n = starts[k + 1] - starts[k]
+        np.testing.assert_array_equal(plane[:n, k],
+                                      np.arange(starts[k], starts[k + 1]))
+        assert (plane[n:, k] == -1).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_chan,b,fs,lo_wrap", [
     (8, 2528, 2_000_000, True), (8, 2528, 2_000_000, False),
     (8, 4544, 2_000_000, True), (4, 64, 6_000_000, True),
-    (3, 5, 5_000_000, False),
+    (3, 5, 5_000_000, False), (1, 1, 2_000_000, True),
+    (5, 7, 2_000_000, False), (2, 3, 6_000_000, False),
+    (8, 9, 9_000_000, True), (8, 40, 10_000_000, True),
+    (3, 7, 20_000_000, False), (2, 4, 38_000_000, True),
 ])
 def test_chan_u8_kernel_matches_plain_on_card(n_chan, b, fs, lo_wrap):
     """On CUDA tensors the wrapper launches csrc/chan_u8.cu (one launch
     counted) and agrees with its plain version, at the 2 s block of the
-    8-channel slice, at the CLI's 4 s block, at 6 Msps, and at a B that
-    is no multiple of 32."""
+    8-channel slice, at the CLI's 4 s block, at 6 Msps, at a B that is no
+    multiple of 32 nor of the three periods a block sums at a time, with
+    one channel and one period, with a channel count that leaves the
+    last channel group part empty, and at rates whose period no longer
+    fits a block's shared memory whole (9 Msps just does; at 10, 20 and
+    38 Msps the 84 windows are cut into chunks)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the channelizer kernel has no CPU "
                     "mode")
@@ -172,3 +207,17 @@ def test_chan_u8_kernel_matches_plain_on_card(n_chan, b, fs, lo_wrap):
     assert y.shape == ref.shape == (n_chan, b, 84, 2)
     np.testing.assert_allclose(y.cpu().numpy(), ref.cpu().numpy(), rtol=0,
                                atol=CHAN_U8_ATOL)
+
+
+@pytest.mark.cuda
+def test_chan_u8_kernel_takes_raw_at_any_byte_offset():
+    """The kernel copies 8 bytes a request; a raw view that starts at
+    another offset is moved first and gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the channelizer kernel has no CPU "
+                    "mode")
+    args = _chan_u8_inputs(3, 6, 2_000_000, True, 3, device="cuda")
+    y = chan_u8.channelize_u8(*args, DC_OFFSET)
+    shifted = torch.cat([args[0][:2], args[0]])[2:]
+    assert shifted.data_ptr() % 8 == 2
+    assert torch.equal(chan_u8.channelize_u8(shifted, *args[1:], DC_OFFSET), y)

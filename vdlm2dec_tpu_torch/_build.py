@@ -122,9 +122,8 @@ def load() -> ctypes.CDLL:
             ]
             lib.vdl2_chan_u8.restype = ctypes.c_int
             lib.vdl2_chan_u8.argtypes = [
-                *[ctypes.c_void_p] * 7, ctypes.c_float, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p,
+                *[ctypes.c_void_p] * 8, ctypes.c_float, ctypes.c_void_p,
+                *[ctypes.c_int] * 6, ctypes.c_void_p,
             ]
             build_info["library"] = str(path)
             _lib = lib

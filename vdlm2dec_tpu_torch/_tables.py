@@ -1,11 +1,9 @@
-"""Numpy-only constants and host helpers of the decode slice.
+"""Numpy-only tables and host helpers of the decode path.
 
-The JAX package keeps these tables inside modules that import jax at top
-level (its channelizer, demod, header, assembly, RS and pipeline modules),
-and the machine that runs this package has no jax.  So they are rebuilt
-here, in plain numpy, from the framework-free `vdlm2dec_tpu.constants`.
-`tests/test_torch_tables.py` holds every table equal to its JAX original;
-once the tables move into a shared numpy module this file goes away.
+The JAX package builds these tables inside its channelizer, demod, header,
+assembly, RS and pipeline modules.  This package rebuilds them here, in
+plain numpy, from its own `constants`; `tests/test_torch_tables.py` holds
+every table equal to its JAX original.
 """
 from __future__ import annotations
 
@@ -14,7 +12,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from vdlm2dec_tpu.constants import (
+from .constants import (
     GF_A0,
     GF_EXP,
     GF_LOG,

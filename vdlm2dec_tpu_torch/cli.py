@@ -21,20 +21,20 @@ from __future__ import annotations
 
 import argparse
 import os
+import select
 import signal
 import socket
 import sys
 import threading
 import time
 
-from vdlm2dec_tpu.constants import MAX_BURST_SYMBOLS
-from vdlm2dec_tpu.host.output import OutputConfig
-from vdlm2dec_tpu.io.sdr import (R820T_GAINS, CaptureReader, choose_fc,
-                                 choose_fc_airspy, match_device, nearest_gain,
-                                 validate_freqs)
-from vdlm2dec_tpu.metrics import PipelineMetrics
-
 from ._tables import PipelineConfig
+from .constants import MAX_BURST_SYMBOLS
+from .host.checkpoint import load_checkpoint, save_checkpoint
+from .host.output import OutputConfig
+from .io.sdr import (R820T_GAINS, CaptureReader, choose_fc, choose_fc_airspy,
+                     match_device, nearest_gain, validate_freqs)
+from .metrics import PipelineMetrics
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -222,6 +222,33 @@ def _stop_on_signals() -> None:
                 pass
 
 
+class _LiveStdin:
+    """stdin of the live route, read so that a signal always stops it.
+
+    The OS may hand a process-directed SIGTERM to any thread (the fetch
+    thread, torch's pools); the main thread then runs the handler only
+    when it next executes bytecode, and never while it sits in read(2)
+    on a pipe whose writer has gone quiet.  So read() waits for data in
+    slices of POLL_S and comes back to the interpreter between them."""
+    POLL_S = 0.2
+
+    def __init__(self, fd: int):
+        self._fd = fd
+
+    def read(self, n: int) -> bytes:
+        """n bytes, or fewer at end of stream (b"" when nothing is left)."""
+        parts, got = [], 0
+        while got < n:
+            if not select.select([self._fd], [], [], self.POLL_S)[0]:
+                continue
+            chunk = os.read(self._fd, n - got)
+            if not chunk:
+                break
+            parts.append(chunk)
+            got += len(chunk)
+        return b"".join(parts)
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -248,7 +275,7 @@ def main(argv=None) -> int:
         print(msg, file=sys.stderr)
         return 1
 
-    from .host_decoder import FrameDecoder
+    from .host.decoder import FrameDecoder
     from .pipeline import Pipeline
 
     logfd = open(args.logfile, "a") if args.logfile else None
@@ -279,7 +306,8 @@ def _decode(args, pipe, dec, verbose: int) -> int:
     checkpoint = None
     if args.iq == "-":
         # live pipe: rtl_sdr/airspy_rx | vdlm2t-torch ... --iq -
-        stream = pipe.stream_live("-", fmt=args.format,
+        stream = pipe.stream_live(_LiveStdin(sys.stdin.fileno()),
+                                  fmt=args.format,
                                   block_seconds=args.block_seconds)
     else:
         try:
@@ -320,8 +348,6 @@ def _file_stream(args, pipe, dec, reader):
     cursor = 0
     prev_end: dict[int, int] = {}
     if args.checkpoint:
-        from vdlm2dec_tpu.host.checkpoint import load_checkpoint
-
         if os.path.exists(args.checkpoint):
             cursor, extra = load_checkpoint(args.checkpoint, dec.flights)
             prev_end = {int(k): int(v)
@@ -341,8 +367,6 @@ def _file_stream(args, pipe, dec, reader):
             start_block=start_block, prev_end=prev_end)
     if not args.checkpoint:
         return stream, None
-    from vdlm2dec_tpu.host.checkpoint import save_checkpoint
-
     done = [start_block]
 
     def checkpoint():

@@ -19,36 +19,83 @@
 //                (ops/pallas_sync.py _atan2 + _kernel)
 // All arithmetic uses the _rn intrinsics so no multiply-add is contracted
 // into an FMA: the results then round exactly as the plain PyTorch
-// versions in ops/sync.py do.
+// versions in ops/sync.py do, bit for bit.
 //
-// What bounds it on an H100: per (channel, position) it moves 16 B of device
-// memory (8 B of y in, err and fr out) but executes ~400-500 instructions:
-// 1.5 filter phases of 66 multiplies and adds plus an atan2 (~40 with its
-// division) each, then a 16-step unwrap and sum scan of ~12 each.  At the
-// card's 3.35 TB/s and ~33.5 T fp32 thread-instructions/s that is ~5 ns of
-// memory against ~13 ns of instructions per thousand positions: instruction
-// throughput, not memory, bounds it, and the design computes nothing twice.
-// One block owns 256 positions of one channel, stages their 400-sample
-// input window (256 + 144 history) in shared memory with coalesced loads,
-// computes the 384 filter phases the window needs once into shared memory
-// (1.5 filters and atan2s per position, instead of the 17 a position's
-// window reads), and each thread then runs its own scan from shared memory.
-// The (C, T, 2) filter output and the (C, T) phases never reach device
-// memory.
+// What bounds it on an H100.  Per (channel, position) it moves 16 B of
+// device memory (8 B of y in, err and fr out, 4 B each) and does about 350
+// float32 operations: 66 for the filter (34 multiplies, 32 adds), ~40 for
+// the atan2 with its division, 240 for the 16 unwrap-and-sum steps, 7 for
+// the fit (the two-pass fused mode ~380).  At (8, 211 848), the 2 s block of
+// 8 channels, that is 27.1 MB, 8.1 us at 3.35 TB/s, against 0.60 G
+// operations, 8.9 us at the 67 TFLOP/s peak: the operations bound it, not
+// memory.  That peak counts a fused multiply-add as two operations, and none
+// may fuse here (see above), so the kernel cannot come nearer than 2x.
+//
+// What the design does about that.
+//   * Large tiles.  A block owns 1024 positions of one channel, so the 128
+//     phases of history that a tile recomputes cost 12.5 % more filters and
+//     atan2s (a 256-position tile pays 50 %).  A stream too short to give
+//     every SM two such blocks takes 256-position tiles instead.
+//   * A register window for the filter.  Thread i computes the R = 9
+//     consecutive phases i*R .. i*R+8 from 25 input samples that it reads
+//     once from shared memory and slides through registers: 2.8 shared
+//     loads per phase instead of 17.  R is odd, so the 8-byte loads of a
+//     half-warp (stride 9 samples) and the phase stores (stride 9 words)
+//     fall into distinct banks.
+//   * Constants in the instruction stream.  Taps and sync word arrive as
+//     a kernel argument (constant bank); every use in the unrolled loops is
+//     an immediate operand, not a shared-memory load.
+//   * Independent scans interleaved.  Each thread scans 8 positions, a
+//     thread-count apart so that the lanes of a warp read consecutive
+//     phases; they run four at a time through the unrolled 16-step loop, so
+//     four dependency chains are in flight per thread.
+//   * The (C, T, 2) filter output and the (C, T) phases never reach device
+//     memory; the input window is read with coalesced 8-byte loads.
+//
+// Measured (vdlm2dec_tpu_torch/kernel_times.py, the kernel's own time, median
+// of 7 replays of a CUDA graph, on an NVIDIA H100 80GB HBM3 at 700 W): 0.0279
+// ms stream and 0.0299 ms fused at (8, 211 848), 3.1x the bound of 0.0089 /
+// 0.0096 ms (0.0303 / 0.0320 ms, 3.4x / 3.3x, when no launch finds its input
+// in the L2 cache), where the 256-position, shared-memory-constant kernel
+// before it took 0.0352 and 0.0377 ms.  Tile sizes of 512 to 2048 positions
+// and 2 to 8 interleaved scans all land within 10 % of that: what is left is
+// the instruction count itself (~420 a position, none fused).
+// (4, 5 376) and (1, 130), which take the small tile, run in 0.0033 and
+// 0.0031 ms against 0.0031 and 0.0026 before.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 256;              // positions per block (= threads)
+constexpr int NT = 128;                // threads per block
 constexpr int HIST = 128;              // sync window history, 16 symbols
 constexpr int RING = 16;               // filter history
-constexpr int NPH = TILE + HIST;       // phases a tile needs
-constexpr int NY = NPH + RING;         // input samples a tile needs
 constexpr int NTAP = 17;
+
+// A tile: R phases per thread (odd: see above), NT * R phases of which the
+// first HIST are history, R - 1 positions scanned per thread, GROUP at a
+// time.
+template <int R_, int GROUP_>
+struct Tile {
+  static constexpr int R = R_;
+  static constexpr int GROUP = GROUP_;
+  static constexpr int NPH = NT * R;            // phases a tile computes
+  static constexpr int TILE = NPH - HIST;       // positions per block
+  static constexpr int NY = NPH + RING;         // input samples it needs
+  static constexpr int PER_THREAD = TILE / NT;  // positions a thread scans
+  static_assert(R % 2 == 1, "R must be odd (shared-memory banks)");
+  static_assert(HIST == NT && PER_THREAD % GROUP == 0, "tile geometry");
+};
+using BigTile = Tile<9, 4>;            // 1024 positions, 12.5 % recomputed
+using SmallTile = Tile<3, 2>;          // 256 positions, for short streams
 
 constexpr int MODE_STREAM = 0;
 constexpr int MODE_FUSED = 1;
+
+struct Consts {
+  float taps[NTAP];
+  float sw[NTAP];
+};
 
 // float32 constants, each rounded from the double the JAX source uses
 __device__ __forceinline__ float f32(double v) { return (float)v; }
@@ -80,118 +127,175 @@ __device__ __forceinline__ float unwrap_step(float pd) {
   return pd > pi ? -two_pi : (pd < -pi ? two_pi : 0.0f);
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(TILE)
-sync_scan_kernel(const float2* __restrict__ y, const float* __restrict__ taps,
-                 const float* __restrict__ sw, float* __restrict__ err,
-                 float* __restrict__ fr, int T) {
+template <int MODE, class TL>
+__global__ void __launch_bounds__(NT)
+sync_scan_kernel(const float2* __restrict__ y, const __grid_constant__ Consts k,
+                 float* __restrict__ err, float* __restrict__ fr, int T) {
+  constexpr int R = TL::R, GROUP = TL::GROUP, NPH = TL::NPH, NY = TL::NY,
+                TILE = TL::TILE, PER_THREAD = TL::PER_THREAD;
   __shared__ float2 ys[NY];
   __shared__ float ph[NPH];
-  __shared__ float tp[NTAP];
-  __shared__ float sws[NTAP];
 
   const int c = blockIdx.y;
   const int t0 = blockIdx.x * TILE;
   const float2* yc = y + (size_t)c * T;
 
-  if (threadIdx.x < NTAP) {
-    tp[threadIdx.x] = taps[threadIdx.x];
-    sws[threadIdx.x] = sw[threadIdx.x];
-  }
   // ys[i] = y[t0 - 144 + i], zero outside the stream
-  for (int i = threadIdx.x; i < NY; i += TILE) {
+  for (int i = threadIdx.x; i < NY; i += NT) {
     const int s = t0 - HIST - RING + i;
     ys[i] = (s >= 0 && s < T) ? yc[s] : make_float2(0.0f, 0.0f);
   }
   __syncthreads();
 
-  // ph[j] = phase at stream position t0 - 128 + j
-  for (int j = threadIdx.x; j < NPH; j += TILE) {
-    float p = 0.0f;
-    if (t0 - HIST + j >= 0) {
-      float fre = __fmul_rn(tp[0], ys[j].x);
-      float fim = __fmul_rn(tp[0], ys[j].y);
+  // ph[j] = phase at stream position t0 - 128 + j, for j = j0 .. j0 + R - 1:
+  // win holds ys[j0 .. j0 + R + 15], every sample read once
+  {
+    const int j0 = threadIdx.x * R;
+    float2 win[R + RING];
 #pragma unroll
-      for (int k = 1; k < NTAP; ++k) {
-        fre = __fadd_rn(fre, __fmul_rn(tp[k], ys[j + k].x));
-        fim = __fadd_rn(fim, __fmul_rn(tp[k], ys[j + k].y));
+    for (int i = 0; i < R + RING; ++i) win[i] = ys[j0 + i];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float fre = __fmul_rn(k.taps[0], win[r].x);
+      float fim = __fmul_rn(k.taps[0], win[r].y);
+#pragma unroll
+      for (int n = 1; n < NTAP; ++n) {
+        fre = __fadd_rn(fre, __fmul_rn(k.taps[n], win[r + n].x));
+        fim = __fadd_rn(fim, __fmul_rn(k.taps[n], win[r + n].y));
       }
-      p = MODE == MODE_STREAM ? atan2f(fim, fre) : cephes_atan2(fim, fre);
+      float p = MODE == MODE_STREAM ? atan2f(fim, fre) : cephes_atan2(fim, fre);
+      if (t0 - HIST + j0 + r < 0) p = 0.0f;
+      ph[j0 + r] = p;
     }
-    ph[j] = p;
   }
   __syncthreads();
 
-  const int t = t0 + threadIdx.x;
-  if (t >= T) return;
-  const float* pw = ph + threadIdx.x;    // pw[8k] = phase at t - 128 + 8k
-  float e, f;
-  if (MODE == MODE_STREAM) {
-    // running sums of the unwrapped phases relative to the first one
-    const float a0 = __fsub_rn(pw[0], sws[0]);
-    float p_prev = a0, cum = 0.0f, s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  // GROUP positions at a time, NT apart: pw[g][8n] = phase at t - 128 + 8n
+#pragma unroll 1
+  for (int m = 0; m < PER_THREAD; m += GROUP) {
+    const float* pw = ph + m * NT + threadIdx.x;
+    float e[GROUP], f[GROUP];
+    if (MODE == MODE_STREAM) {
+      // running sums of the unwrapped phases relative to the first one
+      float a0[GROUP], p_prev[GROUP], cum[GROUP], s0[GROUP], s1[GROUP],
+          s2[GROUP];
 #pragma unroll
-    for (int k = 1; k < NTAP; ++k) {
-      const float pk = __fsub_rn(pw[8 * k], sws[k]);
-      cum = __fadd_rn(cum, unwrap_step(__fsub_rn(pk, p_prev)));
-      const float pr = __fadd_rn(__fsub_rn(pk, a0), cum);
-      s0 = __fadd_rn(s0, pr);
-      s1 = __fadd_rn(s1, __fmul_rn((float)(k - 8), pr));
-      s2 = __fadd_rn(s2, __fmul_rn(pr, pr));
-      p_prev = pk;
+      for (int g = 0; g < GROUP; ++g) {
+        a0[g] = __fsub_rn(pw[g * NT], k.sw[0]);
+        p_prev[g] = a0[g];
+        cum[g] = s0[g] = s1[g] = s2[g] = 0.0f;
+      }
+#pragma unroll
+      for (int n = 1; n < NTAP; ++n) {
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+          const float pk = __fsub_rn(pw[g * NT + 8 * n], k.sw[n]);
+          cum[g] = __fadd_rn(cum[g], unwrap_step(__fsub_rn(pk, p_prev[g])));
+          const float pr = __fadd_rn(__fsub_rn(pk, a0[g]), cum[g]);
+          s0[g] = __fadd_rn(s0[g], pr);
+          s1[g] = __fadd_rn(s1[g], __fmul_rn((float)(n - 8), pr));
+          s2[g] = __fadd_rn(s2[g], __fmul_rn(pr, pr));
+          p_prev[g] = pk;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        f[g] = __fdiv_rn(s1[g], 408.0f);
+        e[g] = __fsub_rn(
+            __fsub_rn(s2[g],
+                      __fmul_rn(__fmul_rn(s0[g], s0[g]), f32(1.0 / 17.0))),
+            __fmul_rn(s1[g], f[g]));
+      }
+    } else {
+      // two-pass: unwrapped phases, their mean, slope, then residual
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        float pr[NTAP];
+        float a_prev = __fsub_rn(pw[g * NT], k.sw[0]);
+        float cum = 0.0f;
+        pr[0] = a_prev;
+#pragma unroll
+        for (int n = 1; n < NTAP; ++n) {
+          const float an = __fsub_rn(pw[g * NT + 8 * n], k.sw[n]);
+          cum = __fadd_rn(cum, unwrap_step(__fsub_rn(an, a_prev)));
+          pr[n] = __fadd_rn(an, cum);
+          a_prev = an;
+        }
+        float mean = pr[0];
+#pragma unroll
+        for (int n = 1; n < NTAP; ++n) mean = __fadd_rn(mean, pr[n]);
+        mean = __fmul_rn(mean, f32(1.0 / 17.0));
+        float num = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NTAP; ++n)
+          num = __fadd_rn(num,
+                          __fmul_rn(__fsub_rn(pr[n], mean), (float)(n - 8)));
+        f[g] = __fmul_rn(num, f32(1.0 / 408.0));
+        float acc = 0.0f;
+#pragma unroll
+        for (int n = 0; n < NTAP; ++n) {
+          const float d = __fsub_rn(__fsub_rn(pr[n], mean),
+                                    __fmul_rn((float)(n - 8), f[g]));
+          acc = __fadd_rn(acc, __fmul_rn(d, d));
+        }
+        e[g] = acc;
+      }
     }
-    f = __fdiv_rn(s1, 408.0f);
-    e = __fsub_rn(__fsub_rn(s2, __fmul_rn(__fmul_rn(s0, s0), f32(1.0 / 17.0))),
-                  __fmul_rn(s1, f));
-  } else {
-    // two-pass: unwrapped phases, their mean, slope, then residual
-    float pr[NTAP];
-    float a_prev = __fsub_rn(pw[0], sws[0]);
-    float cum = 0.0f;
-    pr[0] = a_prev;
 #pragma unroll
-    for (int k = 1; k < NTAP; ++k) {
-      const float ak = __fsub_rn(pw[8 * k], sws[k]);
-      cum = __fadd_rn(cum, unwrap_step(__fsub_rn(ak, a_prev)));
-      pr[k] = __fadd_rn(ak, cum);
-      a_prev = ak;
-    }
-    float m = pr[0];
-#pragma unroll
-    for (int k = 1; k < NTAP; ++k) m = __fadd_rn(m, pr[k]);
-    m = __fmul_rn(m, f32(1.0 / 17.0));
-    float num = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NTAP; ++k)
-      num = __fadd_rn(num, __fmul_rn(__fsub_rn(pr[k], m), (float)(k - 8)));
-    f = __fmul_rn(num, f32(1.0 / 408.0));
-    e = 0.0f;
-#pragma unroll
-    for (int k = 0; k < NTAP; ++k) {
-      const float d = __fsub_rn(__fsub_rn(pr[k], m), __fmul_rn((float)(k - 8), f));
-      e = __fadd_rn(e, __fmul_rn(d, d));
+    for (int g = 0; g < GROUP; ++g) {
+      const int t = t0 + (m + g) * NT + threadIdx.x;
+      if (t < T) {
+        err[(size_t)c * T + t] = e[g];
+        fr[(size_t)c * T + t] = f[g];
+      }
     }
   }
-  err[(size_t)c * T + t] = e;
-  fr[(size_t)c * T + t] = f;
+}
+
+template <class TL>
+void launch(const float2* y, const Consts& k, float* err, float* fr, int C,
+            int T, int mode, cudaStream_t s) {
+  const dim3 grid((T + TL::TILE - 1) / TL::TILE, C);
+  if (mode == MODE_STREAM)
+    sync_scan_kernel<MODE_STREAM, TL><<<grid, NT, 0, s>>>(y, k, err, fr, T);
+  else
+    sync_scan_kernel<MODE_FUSED, TL><<<grid, NT, 0, s>>>(y, k, err, fr, T);
 }
 
 }  // namespace
 
-// y: (C, T, 2) float32 contiguous; taps, sw: 17 float32 each; err, fr:
-// (C, T) float32.  Launches on `stream` and returns cudaGetLastError().
+// y: (C, T, 2) float32 contiguous on the device; taps, sw: 17 float32 each
+// in HOST memory (they travel as a kernel argument); err, fr: (C, T) float32
+// on the device.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int vdl2_sync_scan(const float* y, const float* taps,
                               const float* sw, float* err, float* fr, int C,
                               int T, int mode, void* stream) {
   if (C <= 0 || T <= 0 || C > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + TILE - 1) / TILE, C);
+  Consts k;
+  for (int i = 0; i < NTAP; ++i) {
+    k.taps[i] = taps[i];
+    k.sw[i] = sw[i];
+  }
+  if (mode != MODE_STREAM && mode != MODE_FUSED)
+    return (int)cudaErrorInvalidValue;
+  static int sm_count[64];               // by device, asked once
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int n_sm = dev < 64 ? sm_count[dev] : 0;
+  if (!n_sm) {
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < 64) sm_count[dev] = n_sm;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float2* y2 = reinterpret_cast<const float2*>(y);
-  if (mode == MODE_STREAM)
-    sync_scan_kernel<MODE_STREAM><<<grid, TILE, 0, s>>>(y2, taps, sw, err, fr, T);
-  else if (mode == MODE_FUSED)
-    sync_scan_kernel<MODE_FUSED><<<grid, TILE, 0, s>>>(y2, taps, sw, err, fr, T);
+  // the big tile once it gives every SM two blocks, else the small one: a
+  // short stream needs the blocks more than it minds the recomputed history
+  const long big_blocks = (long)C * ((T + BigTile::TILE - 1) / BigTile::TILE);
+  if (big_blocks >= 2L * n_sm)
+    launch<BigTile>(y2, k, err, fr, C, T, mode, s);
   else
-    return (int)cudaErrorInvalidValue;
+    launch<SmallTile>(y2, k, err, fr, C, T, mode, s);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,8 @@
-"""Frame dispatcher: the out() equivalent (out.c:517-598), for the bursts
-this package decodes.
+"""Frame dispatcher — the out() equivalent (out.c:517-598).
 
-A copy of vdlm2dec_tpu/host/decoder.py's FrameDecoder, which cannot be
-imported here because that module takes DecodedBurst from the jax-importing
-vdlm2dec_tpu.pipeline.  Every helper comes unchanged from vdlm2dec_tpu.host.
-This copy goes away once DecodedBurst moves to a numpy-only module.
+Takes CRC-valid AVLC frames from the pipeline, applies the message filters,
+updates the flight tracker, decodes ACARS/XID payloads and feeds every
+configured sink (text log, JSON lines, UDP JSON, TCP SBS, route/reg).
 """
 from __future__ import annotations
 
@@ -13,11 +11,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from vdlm2dec_tpu.host import arinc
-from vdlm2dec_tpu.host.acars import LabelFilter, decode_label, parse_acars
-from vdlm2dec_tpu.host.avlc import format_addr, format_linkctrl, parse_frame
-from vdlm2dec_tpu.host.flights import FlightTracker
-from vdlm2dec_tpu.host.output import (
+from .._tables import DecodedBurst
+from . import arinc
+from .acars import LabelFilter, decode_label, parse_acars
+from .avlc import format_addr, format_linkctrl, parse_frame
+from .flights import FlightTracker
+from .output import (
     NetSink,
     OutputConfig,
     add_acars_json,
@@ -30,9 +29,7 @@ from vdlm2dec_tpu.host.output import (
     route_json,
     sbs_line,
 )
-from vdlm2dec_tpu.host.xid import decode_xid
-
-from ._tables import DecodedBurst
+from .xid import decode_xid
 
 
 @dataclass

@@ -12,9 +12,8 @@ import functools
 
 import torch
 
-from vdlm2dec_tpu.constants import MAX_ROWS, RS_N
-
 from .._tables import MAX_TX_BYTES, N_GEOM, inverse_fill_tables
+from ..constants import MAX_ROWS, RS_N
 
 
 @functools.lru_cache(maxsize=None)

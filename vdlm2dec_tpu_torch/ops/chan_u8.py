@@ -14,7 +14,10 @@ The kernel takes the raw bytes as they arrive (no deinterleaved copy)
 and uses the structure of the integrate-and-dump matrix a: every input n
 has exactly one nonzero, in column owner(n), and each column's inputs
 are one contiguous window.  So it sums the same nonzero products as the
-dense product, in ascending n, with 1/84 of its multiply-adds.
+dense product, in ascending n, with 1/84 of its multiply-adds.  It keeps
+the LO and the weights in shared memory as [i][k] (i the index inside
+window k), so that the threads of a warp, one output k each, read
+neighbouring words: `window_slots` gives every input its place.
 """
 from __future__ import annotations
 
@@ -75,11 +78,29 @@ def aggregation_windows(a: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return starts, a[np.arange(p_in), owner].astype(np.float32)
 
 
-def _device_windows(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def window_slots(starts: np.ndarray) -> tuple[np.ndarray, int, int]:
+    """Window starts (K+1,) -> (slots (P_in,) int32, pitch, maxlen): input
+    n, the i-th of window k, sits at slots[n] = i * pitch + k of a
+    (maxlen, pitch) plane; maxlen is the longest window.  pitch is K made
+    odd: the kernel fills a plane one input a thread, so neighbouring
+    threads store pitch elements apart, and an odd pitch spreads a warp's
+    stores over all 32 shared-memory banks (K = 84 itself over 8)."""
+    starts = np.asarray(starts, dtype=np.int64)
+    k_out = len(starts) - 1
+    pitch = k_out | 1
+    lens = np.diff(starts)
+    owner = np.repeat(np.arange(k_out), lens)
+    within = np.arange(starts[-1]) - starts[owner]
+    return (within * pitch + owner).astype(np.int32), pitch, int(lens.max())
+
+
+def _device_windows(a: torch.Tensor):
+    """(starts, weights, slots) on a's device, then pitch and maxlen."""
     if a not in _windows:
         starts, weights = aggregation_windows(a.detach().cpu().numpy())
-        _windows[a] = (torch.from_numpy(starts).to(a.device),
-                       torch.from_numpy(weights).to(a.device))
+        slots, pitch, maxlen = window_slots(starts)
+        _windows[a] = (*(torch.from_numpy(v).to(a.device)
+                         for v in (starts, weights, slots)), pitch, maxlen)
     return _windows[a]
 
 
@@ -114,10 +135,15 @@ def channelize_u8(raw: torch.Tensor, lo_r: torch.Tensor, lo_i: torch.Tensor,
         raise ValueError(f"no channelizer kernel for device {raw.device}")
     if not all(t.is_contiguous() for t in (raw, lo_r, lo_i, ph_r, ph_i)):
         raise ValueError("raw, lo and ph must be contiguous")
+    if p_in % 4:
+        raise ValueError(f"the kernel reads four samples at a time: P_in = "
+                         f"{p_in} must be a multiple of 4")
+    if raw.data_ptr() % 8:
+        raw = raw.clone()                  # a view at an odd byte offset
     from .. import _build
 
     lib = _build.load()
-    starts, weights = _device_windows(a)
+    starts, weights, slots, pitch, maxlen = _device_windows(a)
     out = torch.empty((c, b, k_out, 2), dtype=torch.float32,
                       device=raw.device)
     # the runtime launches on its current device: make it raw's
@@ -126,10 +152,14 @@ def channelize_u8(raw: torch.Tensor, lo_r: torch.Tensor, lo_i: torch.Tensor,
         rc = lib.vdl2_chan_u8(raw.data_ptr(), lo_r.data_ptr(),
                               lo_i.data_ptr(), ph_r.data_ptr(),
                               ph_i.data_ptr(), starts.data_ptr(),
-                              weights.data_ptr(), float(dc), out.data_ptr(),
-                              c, b, p_in, k_out, stream)
+                              weights.data_ptr(), slots.data_ptr(),
+                              float(dc), out.data_ptr(), c, b, p_in, k_out,
+                              pitch, maxlen, stream)
     if rc:
-        raise RuntimeError(f"chan_u8 kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"chan_u8 kernel launch failed: CUDA error {rc} at C = {c}, "
+            f"B = {b}, P_in = {p_in}, K = {k_out} (error 9: not even one "
+            f"window of {maxlen} inputs fits the card's shared memory)")
     global launches
     launches += 1
     return out

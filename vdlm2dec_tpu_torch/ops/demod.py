@@ -17,9 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vdlm2dec_tpu.constants import SYNC_THRESHOLD
-
 from .._tables import EXT_TAPS, GRAY32, GRAY_SOFT, KS, POLY32
+from ..constants import SYNC_THRESHOLD
 from .sync import PI, TWO_PI
 
 _POLY = [[float(v) for v in row] for row in POLY32]

@@ -9,9 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from vdlm2dec_tpu.constants import HEADER_STATES, MAX_ROWS, ROW_DATA_BITS
-
 from .._tables import PERM
+from ..constants import HEADER_STATES, MAX_ROWS, ROW_DATA_BITS
 
 _NEG = -1e30
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vdlm2dec_tpu.io.sdr import RTL_DC_OFFSET
+from ..io.sdr import RTL_DC_OFFSET
 
 # the DC offset as the float32 the planes subtract (rtl.c:274-295)
 DC_OFFSET = float(np.float32(RTL_DC_OFFSET))

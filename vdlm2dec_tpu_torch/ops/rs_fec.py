@@ -12,9 +12,8 @@ import functools
 
 import torch
 
-from vdlm2dec_tpu.constants import GF_A0, RS_N, RS_ROOTS
-
 from .._tables import EXPN, LOGN, erasure_init, gf_mul_table, rs_position_tables
+from ..constants import GF_A0, RS_N, RS_ROOTS
 
 
 @functools.lru_cache(maxsize=None)

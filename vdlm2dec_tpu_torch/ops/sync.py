@@ -14,7 +14,6 @@ entries t < 128 see zero history (callers mask them).
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -44,6 +43,9 @@ PI = _f32(math.pi)
 TWO_PI = _f32(2.0 * math.pi)
 _TAP0 = [float(v) for v in POLY32[0]]
 _SW = [float(v) for v in SW32]
+# the kernel takes both tables from host memory, as a kernel argument
+_TAPS_HOST = np.ascontiguousarray(POLY32[0], dtype=np.float32)
+_SW_HOST = np.ascontiguousarray(SW32, dtype=np.float32)
 
 
 def polyphase_filter0(y: torch.Tensor) -> torch.Tensor:
@@ -145,12 +147,6 @@ def sync_scan_fused_ref(y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 _REFS = {"stream": sync_scan_stream_ref, "fused": sync_scan_fused_ref}
 
 
-@functools.lru_cache(maxsize=None)
-def _device_consts(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    return (torch.tensor(POLY32[0], device=device),
-            torch.tensor(SW32, device=device))
-
-
 def sync_scan(y: torch.Tensor, mode: str = "stream"
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(C, T, 2) float32 -> (err, fr), each (C, T) float32.
@@ -174,13 +170,13 @@ def sync_scan(y: torch.Tensor, mode: str = "stream"
     c, t, _ = y.shape
     err = torch.empty((c, t), dtype=torch.float32, device=y.device)
     fr = torch.empty((c, t), dtype=torch.float32, device=y.device)
-    taps, sw = _device_consts(y.device)
     # the runtime launches on its current device: make it y's
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = lib.vdl2_sync_scan(y.data_ptr(), taps.data_ptr(), sw.data_ptr(),
-                                err.data_ptr(), fr.data_ptr(), c, t,
-                                MODES.index(mode), stream)
+        rc = lib.vdl2_sync_scan(y.data_ptr(), _TAPS_HOST.ctypes.data,
+                                _SW_HOST.ctypes.data, err.data_ptr(),
+                                fr.data_ptr(), c, t, MODES.index(mode),
+                                stream)
     if rc:
         raise RuntimeError(f"sync_scan kernel launch failed: CUDA error {rc}")
     launches[mode] += 1

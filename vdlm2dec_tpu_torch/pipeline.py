@@ -31,9 +31,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vdlm2dec_tpu.constants import DEMOD_RATE, RS_K
-from vdlm2dec_tpu.golden.codec import Unstuffer, frame_crc_ok
-
 from ._tables import (
     HALO_LEFT,
     MAX_TX_BYTES,
@@ -46,6 +43,11 @@ from ._tables import (
     stream_geometry,
     unpack_results,
 )
+from .constants import DEMOD_RATE, RS_K
+from .golden.codec import Unstuffer, frame_crc_ok
+from .host.native import deframe_block_native
+from .io.live import stream_blocks, stream_raw_blocks
+from .io.sdr import choose_fc
 from .ops.assembly import assemble_blocks
 from .ops.channelizer import Channelizer, set_f32_matmul
 from .ops.demod import (
@@ -236,8 +238,6 @@ class Pipeline:
             raise ValueError(f"sync_impl must be one of {SYNC_IMPLS}")
         set_f32_matmul()
         if cfg.fc_hz is None:
-            from vdlm2dec_tpu.io.sdr import choose_fc
-
             cfg.fc_hz = choose_fc([int(f) for f in cfg.freqs_hz], cfg.fs)
         # an airspy real capture is mixed relative to F0 = Fc + fs/4
         # (air.c:182-185)
@@ -471,8 +471,6 @@ class Pipeline:
         if self.fused_route(fmt):
             yield from self._stream_live_fused(source, fmt, block_seconds)
             return
-        from vdlm2dec_tpu.io.live import stream_blocks
-
         ch = self.channelizer
         p_in = ch.p_in
         raw_per_block = max(p_in,
@@ -509,8 +507,6 @@ class Pipeline:
         right margin is padded with the format's neutral value so every
         block that was fed decodes, and only the items actually read
         count towards decimated_samples."""
-        from vdlm2dec_tpu.io.live import stream_raw_blocks
-
         ch = self.channelizer
         per, pad_val = RAW_FMT[fmt]
         p_in, p_out = ch.p_in, ch.p_out
@@ -749,8 +745,6 @@ def deframe_corrected(block: np.ndarray, nbrow: int,
     """HDLC unstuff + flag scan + CRC over an RS-corrected block, through
     the native C++ deframer when it builds (behaviour-identical to the
     Python path)."""
-    from vdlm2dec_tpu.host.native import deframe_block_native
-
     frames = deframe_block_native(block, nbrow, nlbyte)
     if frames is not None:
         return frames

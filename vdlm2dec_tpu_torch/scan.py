@@ -15,10 +15,9 @@ import sys
 
 import numpy as np
 
-from vdlm2dec_tpu.constants import STEPRATE
-from vdlm2dec_tpu.io.sdr import CaptureReader
-
 from ._tables import PipelineConfig
+from .constants import STEPRATE
+from .io.sdr import CaptureReader
 
 
 def scan_freqs(fs: int, fc: float, start_mhz: float | None,

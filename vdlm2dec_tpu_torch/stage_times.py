@@ -2,7 +2,7 @@
 
     python3 -m vdlm2dec_tpu_torch.stage_times      # from the repository root
 
-The capture is chip_smoke.py's traffic (bench.make_capture: 8 channels
+The capture is chip_smoke.py's traffic (stimulus.make_capture: 8 channels
 at 2 Msps) cut to 6 s, and the block is block 1 of a stream of 2 s
 blocks, taken with each route's own geometry (32-period tiles under
 use_pallas) and the slice's decode sizes.  For each channelizer route of
@@ -33,6 +33,7 @@ import sys
 import numpy as np
 import torch
 
+from . import stimulus
 from ._tables import PipelineConfig, stream_geometry
 from .pipeline import Pipeline, channelize_raw, wideband_raw_decode
 
@@ -98,16 +99,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("stage_times: no CUDA card visible to torch", file=sys.stderr)
         return 2
-    import bench                     # the stimulus; from the repository root
-
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    wide, freqs, fc, _truth = bench.make_capture(FS, N_CHAN, SECONDS)
-    raw = bench.to_u8(wide)
+    wide, freqs, fc, _truth = stimulus.make_capture(FS, N_CHAN, SECONDS)
+    raw = stimulus.to_u8(wide)
     pipes = {name: Pipeline(PipelineConfig(
         freqs_hz=[float(f) for f in freqs], fs=FS, fc_hz=float(fc),
         max_candidates=64, max_symbols=5449, max_out=512, **kw),
