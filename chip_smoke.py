@@ -2,6 +2,9 @@
 """Smoke test of the PyTorch/CUDA decoder (vdlm2dec_tpu_torch) on one card.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
+    python3 chip_smoke.py --phases mesh,mesh_wideband,cli_mesh,multihost
+                                   # only these (of the mesh phases), for
+                                   # work on them: prints no result line
 
 Phases, each printed as one JSON line with the card's name and power limit:
   card       nvidia-smi name and power limit, torch and CUDA versions
@@ -69,6 +72,26 @@ Phases, each printed as one JSON line with the card's name and power limit:
              blocks (in-process, by a KeyboardInterrupt at the third), then
              resumed as a process: the two outputs concatenate to the
              uninterrupted run's bytes
+  mesh       the (chan, time) mesh, 2 x 4, its eight shards on the one card
+             (spread over the cards when several are visible), on the
+             decimated streams of the capture's first 4 s (each shard has
+             64 decode slots, which 4 channels x 1 s of this traffic
+             fit): ShardedDecoder.decode and Pipeline(mesh=...).
+             decode_channels must give the frames of the unsharded
+             decode_channels on the card and the truth in span, with no
+             slot overflow and K1 launched once per shard
+  kernel     (again) K1 on one shard's halo-extended block of that mesh
+  mesh_wideband  ShardedWidebandDecoder on the same 4 s as complex samples:
+             every shard channelizes its own raw planes (dense einsum),
+             then the same sharded decode
+  cli_mesh   the CLI with --mesh 1x1 (and 1xN on N >= 2 cards) prints the
+             lines of the run without it
+  multihost  parallel.multihost.launch_local: two worker processes, four
+             time shards each, both on the card with their halos over gloo
+             (and, on two or more cards, one card a worker over NCCL), one
+             shot and windowed (--block-seconds 2 --dispatch-depth 2) over
+             the whole capture: the FRAME lines of the two workers equal
+             the one-process job's, none twice, and the truth
 Each decode that drives the main path starts with every kernel's launch
 count at 0 and reads them when it ends; comparison launches do not count.
 Every such decode must decode frames equal to the stimulus truth with no
@@ -89,6 +112,7 @@ import sys
 
 sys.modules["jax"] = None        # the port must not need jax; fail loudly
 
+import argparse
 import contextlib
 import io
 import json
@@ -105,7 +129,8 @@ import torch
 
 from vdlm2dec_tpu_torch import _build, cli, stimulus
 from vdlm2dec_tpu_torch._tables import (HALO_LEFT, PipelineConfig,
-                                        period_for, stream_geometry)
+                                        packed_stats, period_for,
+                                        stream_geometry)
 from vdlm2dec_tpu_torch.host import native
 from vdlm2dec_tpu_torch.host.decoder import FrameDecoder
 from vdlm2dec_tpu_torch.kernel_times import (card_string, cold_ms, event_ms,
@@ -114,6 +139,11 @@ from vdlm2dec_tpu_torch.ops import chan_u8, sync
 from vdlm2dec_tpu_torch.ops.channelizer import Channelizer
 from vdlm2dec_tpu_torch.ops.demod import find_triggers
 from vdlm2dec_tpu_torch.ops.ingest import DC_OFFSET, raw_to_planes_split
+from vdlm2dec_tpu_torch.parallel.multihost import launch_local
+from vdlm2dec_tpu_torch.parallel.sharding import (ShardedDecoder,
+                                                  ShardedWidebandDecoder,
+                                                  burst_window, halo_exchange,
+                                                  make_mesh, shard_channels)
 from vdlm2dec_tpu_torch.pipeline import Pipeline, channelize_raw
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -144,6 +174,10 @@ KERNEL_KEYS = ("shape", "ms", "cold_ms", "event_ms", "plain_ms", "bound_ms",
 AIR_FS = 6_000_000
 AIR_CHAN = 4
 AIR_SECONDS = 2.0
+MESH_SHAPE = (2, 4)              # chan x time
+MESH_SECONDS = 4.0               # 4 channels x 1 s a shard
+MESH_SLOTS = 64                  # decode slots a shard (ShardedDecoder's)
+MESH_PHASES = ("mesh", "mesh_wideband", "cli_mesh", "multihost")
 
 
 def emit(phase: str, card: str, **fields) -> None:
@@ -644,12 +678,14 @@ def cli_phase(card, path, fmt, freqs, fc, extra=(), stdin=False) -> str:
     args = cli.build_parser().parse_args(argv)
     check(args.format == fmt, f"cli format {args.format} != {fmt}")
     cfg = cli.pipeline_config(
-        args, cli.validate_freqs([int(f * 1e6) for f in args.freqs]))
+        args, cli.validate_freqs([int(f * 1e6) for f in args.freqs]),
+        cli.mesh_from_flag(args))
     log = io.StringIO()
     dec = FrameDecoder(cli.output_config(args, log), time_base=0.0)
     pipe = Pipeline(cfg, device="cuda")
     reader = cli.CaptureReader(path, fmt)
-    if pipe.fused_route(fmt):
+    fused = pipe.fused_route(fmt) and cfg.mesh is None
+    if fused:
         stream = pipe.stream_wideband_u8(
             reader.raw, block_seconds=args.block_seconds, fmt=fmt)
     else:
@@ -663,7 +699,7 @@ def cli_phase(card, path, fmt, freqs, fc, extra=(), stdin=False) -> str:
          lines=len(got), lines_in_process=len(want), identical=got == want,
          wall_s=wall, block_seconds=args.block_seconds,
          max_symbols=cfg.max_symbols, max_out=pipe._max_out(),
-         chan_impl=pipe.cfg.chan_impl, fused=pipe.fused_route(fmt))
+         chan_impl=pipe.cfg.chan_impl, fused=fused)
     check(len(got) > 0, "the CLI printed no JSON line")
     check(got == want, f"CLI JSON lines {extra} differ from the in-process "
           "decode")
@@ -709,7 +745,226 @@ def cli_checkpoint_phase(card, path, freqs, fc, full: str):
           "stopped + resumed CLI output differs from the uninterrupted run")
 
 
-def main() -> int:
+def frame_counter(bursts) -> Counter:
+    return Counter((b.channel, bytes(bytearray(f[1:-3])))
+                   for b in bursts for f in b.frames)
+
+
+def shard_devices(n: int) -> list:
+    """n shards over the visible cards, round robin: all on the one card
+    when only one is visible."""
+    cards = torch.cuda.device_count()
+    return [f"cuda:{i % cards}" for i in range(n)]
+
+
+def mesh_span(p_in: int) -> int:
+    """Raw samples of the mesh phases' cut: whole periods for every time
+    shard."""
+    step = MESH_SHAPE[1] * p_in
+    return int(MESH_SECONDS * FS) // step * step
+
+
+def counted_mesh_decode(card, phase, decode, want, **fields):
+    """One counted decode over the mesh: decode() -> (bursts, packed
+    stats).  The frames must equal want with no slot overflow, and K1
+    (stream mode: the shard body's sync "xla") must have been launched
+    once per shard, K2 never."""
+    n_shards = MESH_SHAPE[0] * MESH_SHAPE[1]
+    decode()                                   # warms up
+    torch.cuda.synchronize()
+    reset_launches()                           # counts of the main path
+    t = time.perf_counter()
+    bursts, stats = decode()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = main_path_launches()
+    got = frame_counter(bursts)
+    emit(phase, card, **fields, mesh="x".join(map(str, MESH_SHAPE)),
+         devices=sorted(set(shard_devices(n_shards))), seconds=MESH_SECONDS,
+         slots_per_shard=MESH_SLOTS, frames=sum(got.values()),
+         truth_bursts=sum(want.values()), missed=sum((want - got).values()),
+         extra=sum((got - want).values()), **stats, launches=launched,
+         wall_s=wall)
+    what = f"{phase} {fields}"
+    check(got == want, f"{what}: decoded frames differ from the truth")
+    check(stats["candidates_overflow"] == 0, f"{what}: decode slots "
+          "overflowed")
+    expect = dict.fromkeys(launched, 0)
+    expect["sync_scan[stream]"] = n_shards
+    check(launched == expect, f"{what}: launches {launched}, want {expect}")
+    return launched
+
+
+def mesh_phase(card, raw, freqs, fc, truth):
+    """ShardedDecoder and Pipeline(mesh=...).decode_channels on the
+    decimated streams of the capture's first MESH_SECONDS, against the
+    unsharded decode_channels on the card and the truth; then K1 on one
+    shard's halo-extended block.  Returns (launches, K1 case)."""
+    n_chan, n_time = MESH_SHAPE
+    mesh = make_mesh(n_chan, n_time, devices=shard_devices(n_chan * n_time))
+    ch = Channelizer([f - fc for f in freqs], fs=FS, device="cuda")
+    n = mesh_span(ch.p_in)
+    seg = torch.from_numpy(raw[: 2 * n].copy()).cuda()
+    y = ch(*raw_to_planes_split(seg, ch.p_in), split=True, period0=0)
+    want = truth_in_span(truth, n, FS)
+    plain = Pipeline(slice_config(freqs, fc, "xla"), device="cuda")
+    unsharded = frame_counter(plain.decode_channels(y))
+    check(unsharded == want and sum(want.values()) > 0,
+          "mesh: the unsharded decode of the cut differs from the truth")
+
+    dec = ShardedDecoder(mesh, max_candidates=MAX_CANDIDATES,
+                         max_symbols=MAX_SYMBOLS, max_out=MESH_SLOTS)
+
+    def direct():
+        bufs = []
+        cands = dec.decode(y, observer=bufs.append)
+        return plain._finish(cands, 0), packed_stats(bufs[0])
+
+    pipe = Pipeline(slice_config(freqs, fc, "stream", mesh=mesh),
+                    device="cuda")
+
+    def through_pipeline():
+        pipe.metrics = cli.PipelineMetrics()
+        pipe._overflow_warned = False
+        bursts = pipe.decode_channels(y)
+        m = pipe.metrics
+        return bursts, dict(sync_candidates=m.sync_candidates,
+                            bursts_rejected_header=m.bursts_rejected_header,
+                            candidates_overflow=m.candidates_overflow)
+
+    launches = Counter()
+    launches.update(counted_mesh_decode(card, "mesh", direct, want,
+                                        entry="ShardedDecoder.decode"))
+    launches.update(counted_mesh_decode(
+        card, "mesh", through_pipeline, want,
+        entry="Pipeline(mesh).decode_channels"))
+    # K1 at the shape a shard gives it: left halo + core + one burst window
+    y_ext = halo_exchange(shard_channels(mesh, y)[0], HALO_LEFT,
+                          burst_window(MAX_SYMBOLS))[1]
+    k1 = k1_case(card, y_ext.to("cuda:0").contiguous(), route="mesh/shard",
+                 block_seconds=MESH_SECONDS / n_time)
+    return launches, k1
+
+
+def mesh_wideband_phase(card, wide, freqs, fc, truth):
+    """ShardedWidebandDecoder from the raw samples of the same cut."""
+    n_chan, n_time = MESH_SHAPE
+    mesh = make_mesh(n_chan, n_time, devices=shard_devices(n_chan * n_time))
+    sdrclk = FS // 4000
+    n = mesh_span(period_for(sdrclk)[0])
+    x = wide[:n].astype(np.complex64)
+    dec = ShardedWidebandDecoder(
+        mesh, f_offsets=tuple(f - fc for f in freqs), fs=FS, sdrclk=sdrclk,
+        max_candidates=MAX_CANDIDATES, max_symbols=MAX_SYMBOLS,
+        max_out=MESH_SLOTS)
+    plain = Pipeline(slice_config(freqs, fc, "xla"), device="cuda")
+
+    def decode():
+        bufs = []
+        cands = dec.decode(x, observer=bufs.append)
+        return plain._finish(cands, 0), packed_stats(bufs[0])
+
+    return counted_mesh_decode(card, "mesh_wideband", decode,
+                               truth_in_span(truth, n, FS),
+                               entry="ShardedWidebandDecoder.decode")
+
+
+def cli_mesh_phase(card, path, freqs, fc, full: str):
+    """--mesh CxT builds its mesh from the visible cards and streams
+    through the host-converted route: the same lines as without it."""
+    shapes = ["1x1"]
+    if torch.cuda.device_count() >= 2:
+        shapes.append(f"1x{torch.cuda.device_count()}")
+    for shape in shapes:
+        out = cli_phase(card, path, "cu8", freqs, fc, ["--mesh", shape])
+        check(out == full, f"--mesh {shape} printed other lines than the "
+              "run without it")
+
+
+def frame_lines(outs) -> Counter:
+    return Counter(ln for out in outs for ln in out.splitlines()
+                   if ln.startswith("FRAME "))
+
+
+def multihost_phase(card, path, freqs, fc, truth, n_samples):
+    """launch_local(2, ...): two workers x four time shards on the card,
+    halos over gloo (and over NCCL with a card a worker when two are
+    visible), one shot and windowed, against the one-process job of the
+    same mode and the truth."""
+    base = [*(f"{f / 1e6:.6f}" for f in freqs), "--iq", path, "--fc", str(fc),
+            "--time-shards", "8", "--max-symbols", str(MAX_SYMBOLS),
+            "--max-candidates", str(MAX_CANDIDATES), "--max-out", str(MAX_OUT)]
+    modes = {"oneshot": [],
+             "windowed": ["--block-seconds", str(SLICE_BLOCK_S),
+                          "--dispatch-depth", "2", "--timing"]}
+    jobs = [("gloo", ["cuda:0", "cuda:0"])]
+    if torch.cuda.device_count() >= 2:
+        jobs.append(("nccl", ["cuda:0", "cuda:1"]))
+    want = truth_in_span(truth, n_samples, FS)
+    for mode, extra in modes.items():
+        t = time.perf_counter()
+        single = frame_lines(launch_local(1, base + extra, local_devices=8,
+                                          device="cuda:0", timeout=600))
+        emit("multihost", card, mode=mode, processes=1, backend=None,
+             frame_lines=sum(single.values()), wall_s=time.perf_counter() - t)
+        for backend, devices in jobs:
+            t = time.perf_counter()
+            outs = launch_local(2, base + extra, local_devices=4,
+                                device=devices, backend=backend, timeout=600)
+            wall = time.perf_counter() - t
+            lines = frame_lines(outs)
+            got = Counter()
+            for ln in lines.elements():
+                _tag, chan, _t0, hexed = ln.split()
+                got[int(chan), bytes.fromhex(hexed)[1:-3]] += 1
+            stats = [json.loads(ln[6:]) for out in outs
+                     for ln in out.splitlines() if ln.startswith("STATS ")]
+            emit("multihost", card, mode=mode, processes=2, backend=backend,
+                 devices=devices, frame_lines=sum(lines.values()),
+                 per_process=[sum(frame_lines([o]).values()) for o in outs],
+                 truth_bursts=sum(want.values()),
+                 missed=sum((want - got).values()),
+                 extra=sum((got - want).values()),
+                 equals_one_process=lines == single, stats=stats, wall_s=wall)
+            what = f"multihost {mode} over {backend}"
+            check(max(lines.values(), default=0) == 1,
+                  f"{what}: a FRAME line came out twice")
+            check(lines == single, f"{what}: the two workers' FRAME lines "
+                  "differ from the one-process job's")
+            check(got == want, f"{what}: decoded frames differ from the truth")
+            check(all(o.splitlines()[-1].startswith(f"DONE {i} ")
+                      for i, o in enumerate(outs)), f"{what}: a worker did "
+                  "not finish")
+
+
+def partial_run(card, only, wide, raw, freqs, fc, truth) -> int:
+    """The named mesh phases alone (work on them); no result line."""
+    with tempfile.TemporaryDirectory(prefix="vdl2_smoke_") as tmp:
+        path = os.path.join(tmp, "cap.cu8")
+        raw.tofile(path)
+        if "mesh" in only:
+            mesh_phase(card, raw, freqs, fc, truth)
+        if "mesh_wideband" in only:
+            mesh_wideband_phase(card, wide, freqs, fc, truth)
+        if "cli_mesh" in only:
+            cli_mesh_phase(card, path, freqs, fc,
+                           cli_phase(card, path, "cu8", freqs, fc))
+        if "multihost" in only:
+            multihost_phase(card, path, freqs, fc, truth, len(raw) // 2)
+    print(card)
+    print(json.dumps({"partial": sorted(only)}))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="comma list of " + ", ".join(MESH_PHASES) + ": run "
+                         "only these, and print no result line")
+    only = ap.parse_args(argv).phases
+    only = None if only is None else set(only.split(","))
+    if only is not None and not only <= set(MESH_PHASES):
+        ap.error(f"--phases takes {', '.join(MESH_PHASES)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible to torch", file=sys.stderr)
         return 2
@@ -745,6 +1000,9 @@ def main() -> int:
          bursts=len(truth), air_fs=AIR_FS, air_channels=AIR_CHAN,
          air_seconds=AIR_SECONDS, air_fc=air_fc, air_bursts=len(air_truth),
          synth_s=time.perf_counter() - t)
+
+    if only is not None:
+        return partial_run(card, only, wide, raw, freqs, fc, truth)
 
     kern = {s: kernel_phase(card, raw, freqs, fc, s) for s in (2.0, 4.0)}
     k2, k1 = kernel_k2_phase(card, raw, freqs, fc, stimulus.to_u8(air_wide),
@@ -784,6 +1042,12 @@ def main() -> int:
         live_out = cli_phase(card, path, "cu8", freqs, fc, stdin=True)
         check(live_out == full, "--iq - printed other lines than the file")
         cli_checkpoint_phase(card, path, freqs, fc, full)
+        mesh_launches, mesh_k1 = mesh_phase(card, raw, freqs, fc, truth)
+        launches.update(mesh_launches)
+        k1.append(mesh_k1)
+        launches.update(mesh_wideband_phase(card, wide, freqs, fc, truth))
+        cli_mesh_phase(card, path, freqs, fc, full)
+        multihost_phase(card, path, freqs, fc, truth, len(raw) // 2)
 
     kernels = []
     for mode in sync.MODES:

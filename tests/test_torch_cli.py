@@ -145,13 +145,24 @@ def test_port_cli_refuses_as_jax_cli(cap, flags, capsys):
     assert got == capsys.readouterr().err != ""
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "1x4"]])
-def test_port_cli_refuses_unported_flags(flag, capsys):
-    """Multi-device sharding is the one path not ported: exit 2."""
+def test_port_cli_mesh_matches_jax_cli(cap, capsys):
+    """--mesh 2x2: the port builds its mesh from the CPU (the caller asks
+    for it), the JAX CLI from its virtual CPU devices; both then stream
+    through the host-converted route and print the same lines."""
+    argv = ["--iq", cap, "--mesh", "2x2", *ARGS]
+    _assert_port_cli_matches_jax_cli(argv, capsys)
+
+
+@pytest.mark.parametrize("mesh,message", [
+    ("2x4", "--mesh 2x4: need 8 devices, have 0"),
+    ("1x1", "--mesh 1x1: need 1 devices, have 0"),
+    ("two", "--mesh takes CxT"),
+])
+def test_port_cli_mesh_too_few_devices_is_refused(cap, mesh, message, capsys):
+    """Without --device cpu the mesh is made of the visible CUDA cards:
+    none here, so the CLI exits 1 and names the count (it does not fall
+    back to the CPU); a flag that does not parse is refused the same way."""
     from vdlm2dec_tpu_torch import cli
 
-    with pytest.raises(SystemExit) as e:
-        cli.main(["136.975", "--iq", "cap.cu8", "--device", "cpu", *flag])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "--mesh" in err and "not supported by the PyTorch backend" in err
+    assert cli.main(["136.975", "--iq", cap, "--mesh", mesh]) == 1
+    assert message in capsys.readouterr().err

@@ -8,7 +8,8 @@ Three checks:
   * a process in which those modules cannot be imported imports every
     module of the port, synthesizes a one-burst cu8 capture with the
     port's own framegen / modulator and decodes it through the port's CLI
-    on the CPU;
+    on the CPU, through the CLI with a --mesh too, and runs the
+    multi-host worker's entry point on it;
   * every numpy module that the port keeps as its own copy is pinned to
     its original in the JAX package: equal code once docstrings are
     dropped and import statements reduced to the names they bind (the
@@ -91,11 +92,25 @@ out = io.StringIO()
 with contextlib.redirect_stdout(out):
     rc = cli.main(["136.975", "--iq", path, "--fc", str(fc), "--max-rows",
                    "2", "-J", "--device", "cpu"])
+mesh_out = io.StringIO()
+with contextlib.redirect_stdout(mesh_out):
+    rc_mesh = cli.main(["136.975", "--iq", path, "--fc", str(fc),
+                        "--max-rows", "2", "-J", "--device", "cpu",
+                        "--mesh", "1x2"])
+from vdlm2dec_tpu_torch.parallel import multihost
+worker_out = io.StringIO()
+with contextlib.redirect_stdout(worker_out):
+    rc_worker = multihost._worker_main(
+        ["136.975", "--iq", path, "--fc", str(fc), "--device", "cpu",
+         "--time-shards", "3", "--max-symbols", "1376", "--output", "json"])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "vdlm2dec_tpu", "bench", "tools")
                 and sys.modules[m] is not None)
-print(json.dumps({"rc": rc, "modules": mods, "loaded": loaded,
-                  "lines": [l for l in out.getvalue().splitlines() if l]}))
+lines = lambda o: [l for l in o.getvalue().splitlines() if l]
+print(json.dumps({"rc": [rc, rc_mesh, rc_worker], "modules": mods,
+                  "loaded": loaded, "lines": lines(out),
+                  "mesh_lines": lines(mesh_out),
+                  "worker_lines": lines(worker_out)}))
 """
 
 
@@ -107,13 +122,20 @@ def test_port_imports_and_decodes_with_the_jax_package_blocked(tmp_path):
                        cwd=str(tmp_path))
     assert r.returncode == 0, r.stderr[-3000:]
     res = json.loads(r.stdout.splitlines()[-1])
-    assert res["rc"] == 0 and res["loaded"] == []
+    assert res["rc"] == [0, 0, 0] and res["loaded"] == []
     for name in ("cli", "pipeline", "scan", "stage_times", "stimulus",
                  "host.decoder", "host.native", "ops.sync", "ops.chan_u8",
-                 "io.live", "golden.codec"):
+                 "io.live", "golden.codec", "parallel.sharding",
+                 "parallel.multihost"):
         assert f"vdlm2dec_tpu_torch.{name}" in res["modules"]
     assert len(res["lines"]) == 1
     assert json.loads(res["lines"][0])["text"] == "STANDS ALONE"
+    # --mesh prints the same record; the worker (one process, three time
+    # shards, json surface) decodes the same burst
+    for key in ("mesh_lines", "worker_lines"):
+        records = [json.loads(l) for l in res[key] if l[0] == "{"]
+        assert [r["text"] for r in records] == ["STANDS ALONE"]
+    assert res["worker_lines"][-1].startswith("DONE 0 ")
 
 
 # ------------------------------------------------------------ pinned copies

@@ -11,6 +11,7 @@ time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -112,7 +113,14 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             path = library_path()
             if not path.exists():
-                _compile(path)
+                # several processes may start on a fresh tree (the
+                # multi-host workers): one compiles, the others wait for
+                # its flock (released even if it dies) and load its build
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                with open(BUILD_DIR / "build.lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not path.exists():
+                        _compile(path)
             lib = ctypes.CDLL(str(path))
             lib.vdl2_sync_scan.restype = ctypes.c_int
             lib.vdl2_sync_scan.argtypes = [

@@ -383,9 +383,8 @@ class DecodedBurst:
 @dataclass
 class PipelineConfig:
     """The JAX package's PipelineConfig, field for field, so one config
-    drives both packages.  The port runs every value of every field on
-    one device; only mesh (multi-device sharding) raises
-    NotImplementedError in Pipeline."""
+    drives both packages.  mesh is a parallel.sharding.Mesh: it shards
+    decode_channels and decode_wideband over its devices."""
     freqs_hz: list[float]                  # RF channel frequencies
     fs: int = 2_000_000                    # wideband input rate
     fc_hz: float | None = None             # center frequency (None: auto)
@@ -394,7 +393,7 @@ class PipelineConfig:
     max_candidates: int = 32               # sync candidates per channel/block
     max_symbols: int = MAX_BURST_SYMBOLS   # burst demod window
     sdrclk: int | None = None
-    mesh: object | None = None             # multi-device mesh
+    mesh: object | None = None             # parallel.sharding.Mesh
     use_pallas: bool = False               # dense-channelizer ingest kernel
     max_out: int | None = None             # decode slots per block (None: auto)
     filter_mode: str = "boxcar"            # "boxcar" | "fir"

@@ -13,9 +13,10 @@ same defaults: freqs in MHz, -v -q -J -R -a -G -E -U -b -i -j -s -l -p
 --fc, --block-seconds, --max-rows, --start-time, --stats,
 --stats-interval, --checkpoint, --pallas, --channel-filter boxcar|fir,
 --sync-impl xla|stream|fused, --compute f32|bf16,
---chan-impl auto|dft|matmul|pfb; plus --device (the torch device of the
-device stages).  --mesh (multi-device sharding) is parsed and refused
-with exit 2.
+--chan-impl auto|dft|matmul|pfb, --mesh CxT; plus --device (the torch
+device of the device stages).  --mesh builds a chan x time mesh from the
+visible cards (from the CPU, repeated, under --device cpu) and takes the
+host-converted streaming route, as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -52,7 +53,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--block-seconds", type=float, default=4.0)
     p.add_argument("--max-rows", type=int, default=8)
     p.add_argument("--mesh", default=None,
-                   help="chan x time device mesh (not supported here)")
+                   help="chan x time device mesh, e.g. 2x4: one visible "
+                        "card per shard (the CPU for every shard under "
+                        "--device cpu); streams through the host-converted "
+                        "route")
     p.add_argument("--start-time", type=float, default=None,
                    help="capture start unix time (default: now)")
     p.add_argument("--stats", action="store_true",
@@ -162,7 +166,27 @@ def sdr_refusal(args) -> str | None:
     return None
 
 
-def pipeline_config(args, freqs: list[int]) -> PipelineConfig:
+def mesh_from_flag(args):
+    """The mesh --mesh CxT asks for, or None.  Raises ValueError when the
+    flag does not parse or there are fewer devices than shards."""
+    if not args.mesh:
+        return None
+    import torch
+
+    from .parallel.sharding import make_mesh
+
+    try:
+        c, t = (int(v) for v in args.mesh.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes CxT, e.g. 2x4; got {args.mesh!r}")
+    on_cpu = torch.device(args.device).type == "cpu"
+    try:
+        return make_mesh(c, t, devices=["cpu"] * (c * t) if on_cpu else None)
+    except ValueError as e:
+        raise ValueError(f"--mesh {args.mesh}: {e} (visible CUDA cards)")
+
+
+def pipeline_config(args, freqs: list[int], mesh=None) -> PipelineConfig:
     """The PipelineConfig the command line asks for.  Raises ValueError
     when chooseFc finds no usable center."""
     real_input = args.format == "f32real"
@@ -182,6 +206,7 @@ def pipeline_config(args, freqs: list[int]) -> PipelineConfig:
         fc_hz=float(fc),
         real_input=real_input,
         max_symbols=min(MAX_BURST_SYMBOLS, args.max_rows * 680 + 16),
+        mesh=mesh,
         use_pallas=args.pallas,
         filter_mode=args.channel_filter,
         chan_impl=args.chan_impl,
@@ -250,8 +275,7 @@ class _LiveStdin:
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     _stop_on_signals()
     freqs = validate_freqs([int(f * 1e6) for f in args.freqs])
     if not freqs:
@@ -262,12 +286,9 @@ def main(argv=None) -> int:
     if msg:
         print(msg, file=sys.stderr)
         return 1
-    if args.mesh is not None:
-        parser.error("--mesh is not supported by the PyTorch backend yet; "
-                     "use vdlm2t (python -m vdlm2dec_tpu.cli)")
     try:
-        cfg = pipeline_config(args, freqs)
-    except ValueError as e:       # chooseFc found no usable center
+        cfg = pipeline_config(args, freqs, mesh_from_flag(args))
+    except ValueError as e:       # no usable center, or too few devices
         print(str(e), file=sys.stderr)
         return 1
     msg = sdr_refusal(args)
@@ -355,7 +376,7 @@ def _file_stream(args, pipe, dec, reader):
     total = len(reader)
     core_raw = pipe.core_raw_samples(args.block_seconds)
     start_block = min(cursor, total) // core_raw
-    if pipe.fused_route(args.format):
+    if pipe.fused_route(args.format) and pipe.cfg.mesh is None:
         # native-format raw blocks through the fused device program
         stream = pipe.stream_wideband_u8(
             reader.raw, block_seconds=args.block_seconds,

@@ -70,7 +70,7 @@ SYNC_IMPLS = ("xla", "stream", "fused")
 
 
 def device_decode_packed(y: torch.Tensor, max_candidates: int,
-                         max_symbols: int, max_out: int,
+                         max_symbols: int, max_out: int, chan_base: int = 0,
                          core_start: int = 0, core_len: int = 0,
                          sync_impl: str = "stream") -> torch.Tensor:
     """(C, T, 2) decimated streams -> (M, 2096) uint8 packed rows, one per
@@ -80,7 +80,9 @@ def device_decode_packed(y: torch.Tensor, max_candidates: int,
     BEFORE the per-candidate stages, so demod, header, assembly and RS
     scale with max_out.  core_start/core_len (streaming): only triggers
     inside the core region are owned, and t0 comes back core-relative.
-    compute does not enter here: bf16 applies to the channelizer only."""
+    chan_base (a mesh shard's first global channel) is added to the
+    packed chan word.  compute does not enter here: bf16 applies to the
+    channelizer only."""
     if sync_impl not in SYNC_IMPLS:
         raise ValueError(f"sync_impl must be one of {SYNC_IMPLS}, "
                          f"got {sync_impl!r}")
@@ -133,7 +135,7 @@ def device_decode_packed(y: torch.Tensor, max_candidates: int,
     live = live & ok
     i32 = torch.int32
     meta = torch.stack([
-        chan.to(i32),
+        chan.to(i32) + chan_base,
         (t0s - core_start).to(i32),
         length.to(i32),
         nbrow.to(i32),
@@ -232,8 +234,6 @@ class Pipeline:
         self._overflow_warned = False
         self._metrics_lock = threading.Lock()
         self.sdrclk = cfg.resolved_sdrclk()
-        if cfg.mesh is not None:
-            raise NotImplementedError("multi-device meshes are not ported")
         if cfg.sync_impl not in SYNC_IMPLS:
             raise ValueError(f"sync_impl must be one of {SYNC_IMPLS}")
         set_f32_matmul()
@@ -255,6 +255,15 @@ class Pipeline:
             lo_wrap=cfg.lo_wrap, impl=cfg.chan_impl, device=self.device,
             real_input=cfg.real_input, filter_mode=cfg.filter_mode,
             compute=cfg.compute)
+        # a mesh shards decode_channels (hence decode_wideband); the
+        # streaming entry points decode block by block on self.device
+        self._sharded = None
+        if cfg.mesh is not None:
+            from .parallel.sharding import ShardedDecoder
+
+            self._sharded = ShardedDecoder(
+                cfg.mesh, max_candidates=cfg.max_candidates,
+                max_symbols=cfg.max_symbols)
 
     def _max_out(self) -> int:
         n = len(self.cfg.freqs_hz) * self.cfg.max_candidates
@@ -301,7 +310,11 @@ class Pipeline:
             y = pack_complex(y)
         if self.metrics is not None:
             self.metrics.decimated_samples += int(y.shape[0] * y.shape[1])
-        return self._finish(self._decode_block(y), t_offset=0)
+        if self._sharded is not None:
+            cands = self._sharded.decode(y, observer=self._observe_packed)
+        else:
+            cands = self._decode_block(y)
+        return self._finish(cands, t_offset=0)
 
     def _decode_block(self, y, core_start: int = 0,
                       core_len: int = 0) -> list[dict]:
@@ -336,7 +349,8 @@ class Pipeline:
         program (the JAX CLI's fused_ok and stream_live's test): the
         reference LO mode, the boxcar filter, and cu8 if use_pallas (the
         fused u8 channelizer takes cu8 only).  Otherwise it converts on
-        the host and enters the channelizer's sample entry."""
+        the host and enters the channelizer's sample entry.  The CLI
+        also takes the host-converted route under --mesh."""
         cfg = self.cfg
         return (cfg.lo_wrap and cfg.filter_mode == "boxcar"
                 and (fmt == "cu8" or not cfg.use_pallas))
