@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --phases mesh,mesh_wideband,cli_mesh,multihost
-                                   # only these (of the mesh phases), for
+                                   # only these (of the mesh phases and of
+                                   # bench_quick, wide_64, wide_76, band_760,
+                                   # kchan_2000, k2_wide, stages, snr), for
                                    # work on them: prints no result line
 
 Phases, each printed as one JSON line with the card's name and power limit:
@@ -15,7 +17,10 @@ Phases, each printed as one JSON line with the card's name and power limit:
              package may use where there is no compiler is not accepted
   capture    8 channels x 2 Msps x 10 s of impaired rtl_sdr cu8 traffic
              (stimulus.make_capture: ~9 bursts/s/channel), and 4 channels x
-             6 Msps x 2 s of the same traffic as an airspy real capture
+             6 Msps x 2 s of the same traffic as an airspy real capture.
+             Every capture of the script (these two and those of the bench
+             legs below) is synthesized by a process of its own, all
+             started when the script starts; a phase waits for its capture
   kernel     the sync-scan kernel (K1) against its plain PyTorch version,
              both modes, on the decimated streams of every block shape the
              main path gives it: the dft route's 2 s and 4 s blocks, K2's
@@ -44,14 +49,18 @@ Phases, each printed as one JSON line with the card's name and power limit:
              bursts): decoded frames must equal the stimulus truth, no slot
              overflow, and the kernel must have been launched by the run
   slice_pallas  the same with use_pallas=True: K2 then K1 on every block
-  slice_formats the same traffic as cs16 (dft channelizer), as cf32
-             (matmul channelizer) and the airspy capture (f32real, 6 Msps,
-             real_input): frames equal to the truth, no overflow
+  slice_xla  stream_wideband_u8 with sync_impl="xla" (K1 in stream mode,
+             the flat demod on the materialized four-branch filter)
+  slice_formats the capture's first 6 s as cs16 (dft channelizer) and as
+             cf32 (matmul channelizer), and the airspy capture (f32real,
+             6 Msps, real_input): frames equal to the truth, no overflow.
+             This and the slices below (slice_bf16, slice_fir,
+             slice_nonfused, live) decode the first 6 s, three blocks, of
+             the 10 s capture; a burst that the cut's end cuts may decode
+             or not, every other frame must equal the truth
   kernel     (again) K1 on the decimated 2 s block of the bf16 dft route,
              of the FIR route (stream_wideband's segment) and on the first
              segment of the live FIR route (160 + core + one-burst margin)
-  slice_xla  stream_wideband_u8 with sync_impl="xla" (K1 in stream mode,
-             the flat demod on the materialized four-branch filter)
   slice_bf16 compute="bf16" on the dft and matmul routes and --pallas
   slice_fir  stream_wideband (host conversion, sample entry) with the FIR
              filter on the dense channelizer: K1 per block, no K2
@@ -67,7 +76,10 @@ Phases, each printed as one JSON line with the card's name and power limit:
              6000000); every CRC-valid frame of the random-content traffic
              prints a JSON line, and the lines must equal what Pipeline +
              FrameDecoder emit in-process on the file (the CLI's own
-             route: fused, or stream_wideband for FIR)
+             route: fused, or stream_wideband for FIR).  The processes of
+             cli, cli_mesh and multihost start together, four CLI runs at
+             a time beside the multihost jobs, after the in-process phases
+             and before the bench's: nothing timed runs beside them
   cli_checkpoint  the CLI with --checkpoint stopped after two of its three
              blocks (in-process, by a KeyboardInterrupt at the third), then
              resumed as a process: the two outputs concatenate to the
@@ -92,6 +104,39 @@ Phases, each printed as one JSON line with the card's name and power limit:
              shot and windowed (--block-seconds 2 --dispatch-depth 2) over
              the whole capture: the FRAME lines of the two workers equal
              the one-process job's, none twice, and the truth
+  bench_quick  the bench program (vdlm2dec_tpu_torch.bench) in-process at
+             its 8-channel sizes: the primary leg (4 s blocks through
+             PipelinedDecoder, three passes of six), its device leg (the
+             program alone on a staged block, CUDA events, with the float32
+             matmul rate, the HBM read rate and the front's share) and the
+             paced latency leg at 0.25 s blocks: full recall, no overflow,
+             at least three passes each, K1 once per block
+  wide_64, wide_76  the bench's 64- and 76-channel legs (25 kHz spacing,
+             residue-space channelizer, 1 s in one block): full recall, no
+             overflow, and K1 against both plain versions on the (64, T) and
+             (76, T) decimated block, bit for bit
+  band_760   the bench's whole-band leg: 760 channels at 25 kHz from a
+             20 Msps capture of 1 s, filterbank channelizer, streamed in
+             0.5 s blocks; K1 at (760, T), T the 0.5 s block with its
+             margins, bit for bit, with its times and bound, and the
+             filterbank front's time on that block
+  kchan_2000 the bench's 2000-channel leg (100 Msps, 0.25 s in one block)
+             with bursts on channels 0 and 1999; K1 at (2000, T) bit for bit
+  k2_wide    K2 against its plain version at 64 and 76 channels (2 Msps,
+             the 32-period-aligned 1 s block of those legs' captures): K1's
+             trigger sets on the two outputs may differ only on channels
+             without traffic and only where trigger_compare.
+             flip_by_suppression finds the firing decisions that differ
+             within the err tolerance of the threshold on both sides; the
+             line lists each such decision with its readings
+  stages     stage_times.stage_table at the 8-channel 2 s block and at the
+             band's block: per-stage device times with kernel counts
+Each wide leg's pipeline and capture are made once, for its wall leg, its
+K1 case, k2_wide and stages.
+  snr        snr_sweep at 4, 8 and 20 dB x 10 trials with the golden model
+             beside it: at 20 dB both decode every trial
+Every wide phase prints the card's peak memory (`peak_mem_mb`).
+Every phase line ends with `at_s`, the seconds since the script began.
 Each decode that drives the main path starts with every kernel's launch
 count at 0 and reads them when it ends; comparison launches do not count.
 Every such decode must decode frames equal to the stimulus truth with no
@@ -113,6 +158,7 @@ import sys
 sys.modules["jax"] = None        # the port must not need jax; fail loudly
 
 import argparse
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -127,7 +173,7 @@ from collections import Counter
 import numpy as np
 import torch
 
-from vdlm2dec_tpu_torch import _build, cli, stimulus
+from vdlm2dec_tpu_torch import _build, bench, cli, snr_sweep, stimulus
 from vdlm2dec_tpu_torch._tables import (HALO_LEFT, PipelineConfig,
                                         packed_stats, period_for,
                                         stream_geometry)
@@ -137,14 +183,18 @@ from vdlm2dec_tpu_torch.kernel_times import (card_string, cold_ms, event_ms,
                                              graph_ms, k1_bound, k2_bound)
 from vdlm2dec_tpu_torch.ops import chan_u8, sync
 from vdlm2dec_tpu_torch.ops.channelizer import Channelizer
-from vdlm2dec_tpu_torch.ops.demod import find_triggers
 from vdlm2dec_tpu_torch.ops.ingest import DC_OFFSET, raw_to_planes_split
 from vdlm2dec_tpu_torch.parallel.multihost import launch_local
 from vdlm2dec_tpu_torch.parallel.sharding import (ShardedDecoder,
                                                   ShardedWidebandDecoder,
                                                   burst_window, halo_exchange,
                                                   make_mesh, shard_channels)
-from vdlm2dec_tpu_torch.pipeline import Pipeline, channelize_raw
+from vdlm2dec_tpu_torch.pipeline import STAGES, Pipeline, channelize_raw
+from vdlm2dec_tpu_torch.stage_times import (block_segment, slice_pipeline,
+                                            stage_table)
+from vdlm2dec_tpu_torch.trigger_compare import (flip_at_threshold,
+                                                flip_by_suppression,
+                                                trigger_set)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FS = 2_000_000
@@ -154,12 +204,13 @@ MAX_SYMBOLS = 5449               # 8-row bursts (MAX_BURST_SYMBOLS)
 MAX_CANDIDATES = 64
 MAX_OUT = 512
 SLICE_BLOCK_S = 2.0
+CUT_SECONDS = 6.0                # of the capture, for the later slices
+PROCESSES = 4                    # CLI processes at a time
 # kernel vs plain version: the same float32 operations in the same order
 # (no FMA contraction in the kernel), so the two must agree bit for bit.
-# The tolerance (tests/test_fused_sync.py's) only says where a trigger may
-# flip between two streams that differ, as K2's output and its plain
-# version's do.
-ERR_TOL = (1e-4, 1e-4)           # (rtol, atol)
+# The tolerance of the sync metric (trigger_compare.ERR_TOL) only says
+# where a trigger may flip between two streams that differ, as K2's output
+# and its plain version's do.
 KERNEL_SOURCE = "vdlm2dec_tpu_torch/csrc/sync_scan.cu"
 REPLACES = "vdlm2dec_tpu/ops/pallas_sync.py:82"
 # K2 vs its plain version: |x lo| <= 181 and each output sums ~24-72
@@ -178,10 +229,71 @@ MESH_SHAPE = (2, 4)              # chan x time
 MESH_SECONDS = 4.0               # 4 channels x 1 s a shard
 MESH_SLOTS = 64                  # decode slots a shard (ShardedDecoder's)
 MESH_PHASES = ("mesh", "mesh_wideband", "cli_mesh", "multihost")
+# the bench's legs at width, and the measurement modules
+BENCH_SYMBOLS = 2048             # the bench's default demod window
+WIDE_PLANS = {
+    "wide_64": dict(bench.SCALE_LEGS[64], max_symbols=BENCH_SYMBOLS),
+    "wide_76": dict(bench.SCALE_LEGS[76], max_symbols=BENCH_SYMBOLS),
+    "band_760": bench.BAND_LEG,
+    "kchan_2000": bench.KCHAN_LEG,
+}
+WIDE_BLOCK_S = {"band_760": bench.BAND_BLOCK_S}   # streamed in blocks
+WIDE_PHASES = ("bench_quick", *WIDE_PLANS, "k2_wide", "stages", "snr")
+BENCH_SECONDS = 4.0              # the bench's default block
+LATENCY_SECONDS = 8.0            # run_latency's default feed
+
+
+def plan_capture(plan) -> dict:
+    """stimulus.make_capture's arguments for a bench leg's plan, as
+    bench.leg_pipeline passes them."""
+    return dict(fs=plan.get("fs", FS), n_channels=plan["channels"],
+                seconds=plan["seconds"], spacing=plan.get("spacing", 50_000),
+                active_every=plan.get("active_every", 1),
+                base=plan.get("base"),
+                also_active=list(plan.get("also_active", ())))
+
+
+# stimulus.make_capture's arguments for every capture the phases decode,
+# the longest to make first.  Synthesis is host work of tens of seconds a
+# capture, so each is made by a process of its own and all are started
+# together (start_synthesis); make_capture keeps what it made on disk, and
+# the phase that decodes a capture waits for its process and loads it.
+CAPTURES = {
+    "kchan_2000": plan_capture(WIDE_PLANS["kchan_2000"]),
+    "band_760": plan_capture(WIDE_PLANS["band_760"]),
+    "slice": dict(fs=FS, n_channels=N_CHAN, seconds=SECONDS),
+    "bench_primary": plan_capture(dict(channels=N_CHAN,
+                                       seconds=BENCH_SECONDS)),
+    "bench_latency": dict(fs=FS, n_channels=N_CHAN, seconds=LATENCY_SECONDS,
+                          spacing=25_000, active_every=5),   # run_latency's
+    "wide_76": plan_capture(WIDE_PLANS["wide_76"]),
+    "wide_64": plan_capture(WIDE_PLANS["wide_64"]),
+    "air": dict(fs=AIR_FS, n_channels=AIR_CHAN, seconds=AIR_SECONDS),
+}
+# the phases of --phases that decode each capture
+CAPTURE_PHASES = {
+    "kchan_2000": ("kchan_2000",), "band_760": ("band_760", "stages"),
+    "slice": (*MESH_PHASES, "stages"), "bench_primary": ("bench_quick",),
+    "bench_latency": ("bench_quick",), "wide_76": ("wide_76", "k2_wide"),
+    "wide_64": ("wide_64", "k2_wide"), "air": (),
+}
+SNR_POINTS = (4.0, 8.0, 20.0)
+SNR_TRIALS = 10
+
+
+T_START = time.perf_counter()
+EMIT_LOCK = threading.Lock()
+STDOUT = sys.stdout              # the script's own, whatever a phase redirects
 
 
 def emit(phase: str, card: str, **fields) -> None:
-    print(json.dumps({"phase": phase, "card": card, **fields}), flush=True)
+    """One JSON line of a phase (whole, from whichever thread); at_s:
+    seconds since the script began."""
+    line = json.dumps({"phase": phase, "card": card, **fields,
+                       "at_s": round(time.perf_counter() - T_START, 1)})
+    with EMIT_LOCK:
+        STDOUT.write(line + "\n")
+        STDOUT.flush()
 
 
 def check(ok: bool, what: str) -> None:
@@ -198,18 +310,12 @@ def trigger_diff(err_a, fr_a, err_b, fr_b) -> tuple[int, int]:
     """(triggers in a, flipped triggers): positions valid on one side
     only.  Raises unless each flip sits where a threshold test (e1 < 4,
     e0 > e1) is within the err tolerance."""
-    sets = []
-    for err, fr in ((err_a, fr_a), (err_b, fr_b)):
-        t0, _of, _df, valid, _q = find_triggers(err, fr, MAX_CANDIDATES)
-        t0, valid = t0.cpu().numpy(), valid.cpu().numpy()
-        sets.append({(int(c), int(t0[c, k])) for c, k in zip(*np.nonzero(valid))})
+    sets = [trigger_set(err, fr, MAX_CANDIDATES)
+            for err, fr in ((err_a, fr_a), (err_b, fr_b))]
     flips = sets[0] ^ sets[1]
     e = err_a.cpu().numpy()
-    rtol, atol = ERR_TOL
     for c, t in flips:
-        e0, e1 = float(e[c, t]), float(e[c, t - 2])
-        tol = atol + rtol * abs(e1)
-        check(abs(e1 - 4.0) <= tol or abs(e0 - e1) <= tol,
+        check(flip_at_threshold(e, c, t),
               f"trigger ({c}, {t}) differs away from the threshold")
     return len(sets[0]), len(flips)
 
@@ -323,7 +429,9 @@ def reset_launches() -> None:
 def k2_case(card, raw, offsets, fs, lo_wrap, b, period0, with_triggers,
             **fields):
     """K2 against its plain version on one block of b periods of cu8
-    bytes that starts at absolute period period0: (result, K2's y)."""
+    bytes that starts at absolute period period0: (result, K2's y, the
+    plain version's y).  with_triggers: K1's trigger sets on both outputs
+    must be equal."""
     ch = Channelizer(offsets, fs=fs, lo_wrap=lo_wrap, impl="matmul",
                      device="cuda")
     seg = torch.from_numpy(np.ascontiguousarray(raw)).cuda()
@@ -357,7 +465,7 @@ def k2_case(card, raw, offsets, fs, lo_wrap, b, period0, with_triggers,
               f"{n_flip} differ between its output and its plain version's")
         res.update(triggers=n_trig, trigger_flips_near_threshold=n_flip)
     emit("kernel_k2", card, **res)
-    return res, y_k
+    return res, y_k, y_p
 
 
 def kernel_k2_phase(card, raw, freqs, fc, air_u8, air_offsets):
@@ -378,17 +486,18 @@ def kernel_k2_phase(card, raw, freqs, fc, air_u8, air_offsets):
         lmarg_p, _r, core_p, total_p = stream_geometry(
             p_in, p_out, FS, max_symbols, block_s, align=32)
         lo = (core_p - lmarg_p) * p_in * 2     # block 1
-        res, y = k2_case(card, raw[lo: lo + total_p * p_in * 2], offsets,
-                         FS, wrap, total_p, core_p - lmarg_p, True,
-                         block_seconds=block_s)
+        res, y, _y_p = k2_case(card, raw[lo: lo + total_p * p_in * 2],
+                               offsets, FS, wrap, total_p, core_p - lmarg_p,
+                               True, block_seconds=block_s)
         k2.append(res)
         if wrap:
             k1.append(k1_case(card, y.reshape(len(offsets), -1, 2),
                               route="pallas", block_seconds=block_s))
     air_p_in = 4 * (AIR_FS // 4000)
     lo = len(air_u8) // (4 * air_p_in) * 2 * air_p_in      # mid-capture
-    res, y = k2_case(card, air_u8[lo: lo + 64 * air_p_in * 2], air_offsets,
-                     AIR_FS, True, 64, lo // (2 * air_p_in), False)
+    res, y, _y_p = k2_case(card, air_u8[lo: lo + 64 * air_p_in * 2],
+                           air_offsets, AIR_FS, True, 64,
+                           lo // (2 * air_p_in), False)
     k2.append(res)
     # a stream this short takes K1's 256-position tiles, the others 1024
     k1.append(k1_case(card, y.reshape(len(air_offsets), -1, 2),
@@ -413,9 +522,17 @@ def air_config(air_freqs, air_fc) -> PipelineConfig:
 
 def truth_in_span(truth, n_samples, fs):
     """The stimulus bursts inside the decoded span, as a frame Counter."""
+    return span_truth(truth, n_samples, fs)[0]
+
+
+def span_truth(truth, n_samples, fs):
+    """(the stimulus bursts inside the capture's first n_samples, those
+    that its end cuts), as frame Counters.  A cut burst is not asked for,
+    but may decode where the code corrects what is missing."""
     p_in, p_out = period_for(fs // 4000)
     span84 = (n_samples // p_in) * p_out
-    return Counter((c, b) for c, b, p0, n in truth if p0 + n <= span84)
+    return (Counter((c, b) for c, b, p0, n in truth if p0 + n <= span84),
+            Counter((c, b) for c, b, p0, n in truth if p0 < span84 < p0 + n))
 
 
 def decode_phase(card, phase, pipe, raw, fmt, n_samples, truth, **fields):
@@ -436,11 +553,12 @@ def counted_decode(card, phase, pipe, stream, n_samples, truth, k2,
                    file_blocks, **fields):
     """One counted main-path decode: stream(n) yields the burst lists of
     the decode of the capture's first n samples (None: all of it).  The
-    frames must equal the truth, with no slot overflow; K1 (in the mode
+    frames must equal the truth (a burst that the end of a cut capture
+    cuts may come besides), with no slot overflow; K1 (in the mode
     the route runs) must be launched once per decoded block, K2 once per
     block if k2 and never otherwise, and with file_blocks the blocks are
     the capture's core blocks."""
-    want = truth_in_span(truth, n_samples, pipe.cfg.fs)
+    want, edge = span_truth(truth, n_samples, pipe.cfg.fs)
     for _ in stream(pipe.core_raw_samples(SLICE_BLOCK_S)):
         pass                                   # builds tables, warms up
     torch.cuda.synchronize()
@@ -465,7 +583,7 @@ def counted_decode(card, phase, pipe, stream, n_samples, truth, k2,
                frames=sum(got.values()), truth_bursts=sum(want.values()),
                recall=f"{sum((got & want).values())}/{sum(want.values())}",
                missed=sum((want - got).values()),
-               extra=sum((got - want).values()),
+               extra=sum((got - want).values()), cut_by_end=sum(edge.values()),
                sync_candidates=m.sync_candidates,
                candidates_overflow=m.candidates_overflow,
                launches=launched, wall_s=wall,
@@ -473,7 +591,8 @@ def counted_decode(card, phase, pipe, stream, n_samples, truth, k2,
                peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
     emit(phase, card, **res)
     what = f"{phase} {fields}"
-    check(got == want, f"{what}: decoded frames differ from the truth")
+    check(not want - got and not (got - want) - edge,
+          f"{what}: decoded frames differ from the truth")
     check(m.candidates_overflow == 0, f"{what}: decode slots overflowed")
     if file_blocks:
         want_blocks = -(-n_samples // pipe.core_raw_samples(SLICE_BLOCK_S))
@@ -666,13 +785,27 @@ def run_cli(argv, stdin_path=None):
     return r.stdout, wall
 
 
-def cli_phase(card, path, fmt, freqs, fc, extra=(), stdin=False) -> str:
+def cli_process(path, freqs, fc, extra=(), stdin=False):
+    """run_cli's arguments for cli_phase's CLI process."""
+    return (cli_argv("-" if stdin else path, freqs, fc, extra),
+            path if stdin else None)
+
+
+def start_cli(pool, *args, **kw):
+    """cli_phase's CLI process (cli_process's arguments), started on a
+    thread of the pool."""
+    return pool.submit(run_cli, *cli_process(*args, **kw))
+
+
+def cli_phase(card, path, fmt, freqs, fc, extra=(), stdin=False,
+              started=None) -> str:
     """The CLI on a capture file (or, with stdin, on `--iq -` with the
     file on its stdin) vs the decode of the file in-process through the
-    CLI's own route.  Returns the CLI's stdout."""
+    CLI's own route.  started: its process, from start_cli with the same
+    arguments (else it is run here).  Returns the CLI's stdout."""
     argv = cli_argv(path, freqs, fc, extra)
-    run_argv = cli_argv("-", freqs, fc, extra) if stdin else argv
-    out, wall = run_cli(run_argv, path if stdin else None)
+    out, wall = started.result() if started \
+        else run_cli(*cli_process(path, freqs, fc, extra, stdin))
     got = [ln for ln in out.splitlines() if ln.strip()]
 
     args = cli.build_parser().parse_args(argv)
@@ -869,14 +1002,20 @@ def mesh_wideband_phase(card, wide, freqs, fc, truth):
                                entry="ShardedWidebandDecoder.decode")
 
 
-def cli_mesh_phase(card, path, freqs, fc, full: str):
-    """--mesh CxT builds its mesh from the visible cards and streams
-    through the host-converted route: the same lines as without it."""
+def mesh_shapes() -> list[str]:
     shapes = ["1x1"]
     if torch.cuda.device_count() >= 2:
         shapes.append(f"1x{torch.cuda.device_count()}")
-    for shape in shapes:
-        out = cli_phase(card, path, "cu8", freqs, fc, ["--mesh", shape])
+    return shapes
+
+
+def cli_mesh_phase(card, path, freqs, fc, full: str, started=None):
+    """--mesh CxT builds its mesh from the visible cards and streams
+    through the host-converted route: the same lines as without it.
+    started: shape -> its process from start_cli."""
+    for shape in mesh_shapes():
+        out = cli_phase(card, path, "cu8", freqs, fc, ["--mesh", shape],
+                        started=started and started[shape])
         check(out == full, f"--mesh {shape} printed other lines than the "
               "run without it")
 
@@ -937,8 +1076,300 @@ def multihost_phase(card, path, freqs, fc, truth, n_samples):
                   "not finish")
 
 
-def partial_run(card, only, wide, raw, freqs, fc, truth) -> int:
+def processes_phase(card, path, air_path, freqs, fc, air_freqs, air_fc, truth,
+                    n_samples):
+    """The phases that run the port as processes: cli, cli_checkpoint,
+    cli_mesh and multihost.  A process takes ten seconds and more to start
+    and reach the card, so the CLI runs are started together, PROCESSES at
+    a time, beside the multihost jobs (one after another on a thread of
+    their own), and each is then held to its in-process decode as before.
+    Nothing that is timed runs meanwhile."""
+    air = (air_path, air_freqs, air_fc - AIR_FS // 4,
+           ["--format", "f32real", "--fs", str(AIR_FS)])
+    flag_sets = ([], ["--pallas"], ["--sync-impl", "xla"],
+                 ["--compute", "bf16"], ["--channel-filter", "fir"])
+    with concurrent.futures.ThreadPoolExecutor(PROCESSES + 1) as pool:
+        multihost = pool.submit(multihost_phase, card, path, freqs, fc, truth,
+                                n_samples)
+        runs = [start_cli(pool, path, freqs, fc, extra)
+                for extra in flag_sets]
+        air_run = start_cli(pool, *air)
+        stdin_run = start_cli(pool, path, freqs, fc, stdin=True)
+        mesh_runs = {shape: start_cli(pool, path, freqs, fc,
+                                      ["--mesh", shape])
+                     for shape in mesh_shapes()}
+        full = cli_phase(card, path, "cu8", freqs, fc, started=runs[0])
+        cli_phase(card, path, "cu8", freqs, fc, ["--pallas"],
+                  started=runs[1])
+        cli_phase(card, air[0], "f32real", *air[1:], started=air_run)
+        for extra, started in zip(flag_sets[2:], runs[2:]):
+            cli_phase(card, path, "cu8", freqs, fc, extra, started=started)
+        live_out = cli_phase(card, path, "cu8", freqs, fc, stdin=True,
+                             started=stdin_run)
+        check(live_out == full, "--iq - printed other lines than the file")
+        cli_checkpoint_phase(card, path, freqs, fc, full)
+        cli_mesh_phase(card, path, freqs, fc, full, mesh_runs)
+        multihost.result()
+
+
+def counted_bench_leg(card, phase, leg, run, blocks_per_decode, decodes,
+                      **fields):
+    """One leg of the bench program, counted: run() -> the leg's record.
+    K1 (stream mode) must have been launched once per block, K2 never."""
+    reset_launches()                           # counts of the main path
+    out = run()
+    launched = main_path_launches()
+    out.pop("card", None)
+    emit(phase, card, leg=leg, **fields, **out, launches=launched)
+    expect = dict.fromkeys(launched, 0)
+    expect["sync_scan[stream]"] = blocks_per_decode * decodes
+    check(launched == expect,
+          f"{phase}/{leg}: launches {launched}, want {expect}")
+    return out, launched
+
+
+def check_wall_leg(what, out):
+    n, of = out["recall"].split("/")
+    check(n == of and int(of) > 0, f"{what}: recall {out['recall']}")
+    check(out["candidates_overflow"] == 0, f"{what}: decode slots overflowed")
+    check(len(out["msps_passes"]) >= 3,
+          f"{what}: {len(out['msps_passes'])} passes")
+    check(out["duplicates"] == out["leakage"] == out["spurious"] == 0,
+          f"{what}: frames beyond the truth: {out}")
+
+
+def bench_quick_phase(card, synth):
+    """The bench program's 8-channel legs at its default sizes: primary,
+    device leg, latency at 0.25 s blocks."""
+    launches = Counter()
+    iters = 6
+    sizes = (N_CHAN, BENCH_SECONDS, iters, BENCH_SYMBOLS, None, False)
+    route = dict(device="cuda", chan_impl="auto", sync_impl="stream")
+    await_capture(synth, "bench_primary")
+    out, counted = counted_bench_leg(
+        card, "bench_quick", "primary",
+        lambda: bench.run_config(*sizes, **route), 1, 1 + bench.PASSES * iters)
+    check_wall_leg("bench_quick/primary", out)
+    launches.update(counted)
+    outer, inner = 3, 4
+    dev, counted = counted_bench_leg(
+        card, "bench_quick", "device_8ch",
+        lambda: bench.run_device_config(N_CHAN, BENCH_SECONDS, outer, inner,
+                                        BENCH_SYMBOLS, None, False, **route),
+        1, 1 + outer * inner)
+    launches.update(counted)
+    check(len(dev["device_msps_passes"]) >= 3
+          and dev["candidates_overflow"] == 0
+          and dev["blocks_timed"] == outer * inner,
+          f"bench_quick/device_8ch: {dev}")
+    check(0 < dev["channelizer_share_of_matmul_peak"] < 1
+          and dev["matmul_peak_gflops_f32"] > 0 and dev["hbm_read_gbps"] > 0,
+          f"bench_quick/device_8ch: roofline probes {dev}")
+    await_capture(synth, "bench_latency")
+    lat_blocks = int(LATENCY_SECONDS / 0.25)
+    lat, counted = counted_bench_leg(
+        card, "bench_quick", "latency",
+        lambda: bench.run_latency(0.25, seconds=LATENCY_SECONDS,
+                                  device="cuda"), 1, 1 + lat_blocks)
+    launches.update(counted)
+    check("error" not in lat and lat["blocks"] >= 3
+          and lat["blocks"] == lat_blocks - lat["warmup_blocks"]
+          and lat["p50_ms"] > 0 and isinstance(lat["stalls"], int)
+          and lat["h2d_block_ms"] > 0, f"bench_quick/latency: {lat}")
+    return launches
+
+
+def wide_leg(phase, synth):
+    """A wide leg's pipeline on the card and its capture, cut to whole
+    periods, made once for everything that runs on it: (pipe, cu8 bytes,
+    truth, seconds the making took)."""
+    await_capture(synth, phase)
+    t = time.perf_counter()
+    pipe, raw, truth = bench.leg_pipeline(
+        max_candidates=None, pallas=False, device="cuda",
+        block_seconds=WIDE_BLOCK_S.get(phase), **WIDE_PLANS[phase])
+    return pipe, bench.whole_tiles(pipe, raw), truth, time.perf_counter() - t
+
+
+def wide_phase(card, phase, leg):
+    """One of the bench's wide legs (WIDE_PLANS) on its wide_leg: three
+    passes of decodes of its capture, then K1 on the decimated block of
+    that shape (the whole capture, or block 1 of its stream), channelized
+    on the card by the leg's own route.  Returns (launches, K1 case)."""
+    plan = WIDE_PLANS[phase]
+    pipe, raw, truth, capture_s = leg
+    block_s = WIDE_BLOCK_S.get(phase)
+    iters = 1 if phase in ("band_760", "kchan_2000") else 4
+    blocks = 1 if block_s is None \
+        else -(-(len(raw) // 2) // pipe.core_raw_samples(block_s))
+    out, launches = counted_bench_leg(
+        card, phase, "wall",
+        lambda: bench.run_leg(pipe, raw, truth, iters, block_seconds=block_s),
+        blocks, 1 + bench.PASSES * iters, capture_s=capture_s)
+    check_wall_leg(phase, out)
+    active = {c for c, *_ in truth}
+    check(active == set(stimulus.active_channels(
+        plan["channels"], plan["active_every"], plan.get("also_active", ()))),
+        f"{phase}: bursts on channels {sorted(active)}")
+    if phase == "kchan_2000":
+        check({0, 1999} <= active, "kchan_2000: no burst on an edge channel")
+    torch.cuda.reset_peak_memory_stats()
+    ch = pipe.channelizer
+    seg = raw if block_s is None else block_segment(pipe, raw, block_s, 1)[0]
+    seg_dev = torch.from_numpy(seg).cuda()
+    y = channelize_raw(seg_dev, ch, "cu8", False)
+    torch.cuda.synchronize()
+    check(y.shape[0] == plan["channels"], f"{phase}: y {tuple(y.shape)}")
+    k1 = k1_case(card, y, route=f"{phase}/{pipe.cfg.chan_impl}",
+                 fs=pipe.cfg.fs, block_seconds=block_s or plan["seconds"])
+    emit(phase, card, leg="front", chan_impl=ch.impl,
+         shape=list(y.shape), periods=seg_dev.numel() // (2 * ch.p_in),
+         front_ms=cuda_ms(lambda: channelize_raw(seg_dev, ch, "cu8", False)),
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+    return launches, k1
+
+
+def k2_wide_phase(card, legs):
+    """K2 against its plain version at 64 and 76 channels, on the
+    32-period-aligned 1 s block of the wide legs' own capture bytes, then
+    K1's trigger sets on the two outputs.  They may differ only on
+    channels without traffic, and only where flip_by_suppression finds
+    every differing firing decision of the flip's sync window within the
+    err tolerance of the threshold on both sides; each such decision is
+    printed with its readings."""
+    p_in = period_for(FS // 4000)[0]
+    out = []
+    for phase in ("wide_64", "wide_76"):
+        pipe, raw, _truth, _s = legs[phase]
+        offsets = pipe.f_offsets
+        b = len(raw) // (2 * p_in) // 32 * 32
+        torch.cuda.reset_peak_memory_stats()
+        res, y_k, y_p = k2_case(card, raw[: b * p_in * 2], offsets, FS, True,
+                                b, 0, False,
+                                route=f"k2_wide/{len(offsets)}ch")
+        ys = [y.reshape(len(offsets), -1, 2) for y in (y_k, y_p)]
+        (err_k, fr_k), (err_p, fr_p) = (sync.sync_scan(y) for y in ys)
+        of_k, of_p = (trigger_set(e, f, MAX_CANDIDATES)
+                      for e, f in ((err_k, fr_k), (err_p, fr_p)))
+        e_k, e_p = err_k.cpu().numpy(), err_p.cpu().numpy()
+        active = set(stimulus.active_channels(
+            len(offsets), WIDE_PLANS[phase]["active_every"]))
+        flips = []
+        for c, t in sorted(of_k ^ of_p):
+            explained, decisions = flip_by_suppression(e_k, e_p, c, t)
+            flips.append(dict(channel=c, t=t, on_kernel_side=(c, t) in of_k,
+                              idle_channel=c not in active,
+                              explained=explained, decisions=decisions))
+        # readings: [K2's output, its plain version's]
+        emit("k2_wide", card, channels=len(offsets), periods=b,
+             max_abs_err=res["max_abs_err"], triggers=len(of_k),
+             trigger_flips=flips,
+             peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+        check(len(of_k) > 0, "k2_wide: no trigger")
+        check(all(f["explained"] and f["idle_channel"] for f in flips),
+              "k2_wide: a trigger differs between K2's output and its plain "
+              f"version's on traffic or away from the threshold: {flips}")
+        out.append(res)
+    return out
+
+
+def stages_phase(card, synth, band):
+    """stage_times' table at the slice's 2 s block (block 1 of the slice's
+    capture) and at the band's block (band: its wide_leg): every stage
+    timed and counted, the kernels' sum within the program's event time."""
+    await_capture(synth, "slice")
+    wide, freqs, fc, _truth = stimulus.make_capture(**CAPTURES["slice"])
+    band_pipe, band_raw = band[:2]
+    shapes = (("slice", slice_pipeline(freqs, fc, "cuda"),
+               stimulus.to_u8(wide[: int(3 * SLICE_BLOCK_S * FS)]),
+               SLICE_BLOCK_S),
+              ("band", band_pipe, band_raw, WIDE_BLOCK_S["band_760"]))
+    for shape, pipe, cap, block_s in shapes:
+        torch.cuda.reset_peak_memory_stats()
+        table = stage_table(pipe, cap, block_s)
+        emit("stages", card, shape=shape, **table,
+             peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+        rows = table["stages"]
+        check([r["stage"] for r in rows] == list(STAGES),
+              f"stages/{shape}: {[r['stage'] for r in rows]}")
+        check(all(r["delta_ms"] > 0 and r["kernels"] > 0 for r in rows),
+              f"stages/{shape}: a stage without time or kernels")
+        check(rows[1]["kernels"] == 1, f"stages/{shape}: sync is "
+              f"{rows[1]['kernels']} kernels, want K1 alone")
+        check(0 < table["kernel_ms"] <= table["program_ms"] * 1.05,
+              f"stages/{shape}: kernels {table['kernel_ms']} ms in a "
+              f"program of {table['program_ms']} ms")
+
+
+def snr_phase(card):
+    """snr_sweep on the card with the golden model beside it."""
+    reset_launches()
+    t = time.perf_counter()
+    rows = list(snr_sweep.sweep(SNR_POINTS, SNR_TRIALS, 40, True, "cuda"))
+    launched = main_path_launches()
+    emit("snr", card, trials=SNR_TRIALS, rows=rows, launches=launched,
+         wall_s=time.perf_counter() - t)
+    check(rows[-1] == {"snr_db": 20.0, "port_rate": 1.0, "golden_rate": 1.0},
+          f"snr: at 20 dB {rows[-1]}")
+    check(all(0.0 <= r["port_rate"] <= 1.0 for r in rows)
+          and rows[0]["port_rate"] <= rows[-1]["port_rate"],
+          f"snr: rates {rows}")
+    check(launched["sync_scan[stream]"] == len(SNR_POINTS) * SNR_TRIALS,
+          f"snr: launches {launched}")
+    return launched
+
+
+def wide_run(card, synth, only=None):
+    """The bench, width and measurement phases (those of `only`, or all):
+    (launches, K1 cases, K2 cases).  Each wide leg's pipeline and capture
+    are made once, for its own phase and for k2_wide and stages."""
+    launches, k1, k2, legs = Counter(), [], [], {}
+    run = (lambda phase: only is None or phase in only)
+    if run("bench_quick"):
+        launches.update(bench_quick_phase(card, synth))
+    for phase in WIDE_PLANS:
+        if any(map(run, CAPTURE_PHASES[phase])):
+            legs[phase] = wide_leg(phase, synth)
+        if run(phase):
+            counted, case = wide_phase(card, phase, legs[phase])
+            launches.update(counted)
+            k1.append(case)
+    if run("k2_wide"):
+        k2 = k2_wide_phase(card, legs)
+    if run("stages"):
+        stages_phase(card, synth, legs["band_760"])
+    if run("snr"):
+        launches.update(snr_phase(card))
+    return launches, k1, k2
+
+
+def captures_of(only) -> list[str]:
+    """The captures that the phases of `only` (None: all) decode."""
+    return [n for n, phases in CAPTURE_PHASES.items()
+            if only is None or only & set(phases)]
+
+
+def start_synthesis(names) -> dict:
+    """One process a capture, all started together: each synthesizes its
+    capture into stimulus.make_capture's store on disk, where the phase
+    that needs it finds it after await_capture."""
+    code = ("import json, sys; from vdlm2dec_tpu_torch import stimulus; "
+            "stimulus.make_capture(**json.loads(sys.argv[1]))")
+    return {n: subprocess.Popen(
+        [sys.executable, "-c", code, json.dumps(CAPTURES[n])], cwd=REPO,
+        stdout=subprocess.DEVNULL) for n in names}
+
+
+def await_capture(synth, name) -> None:
+    check(synth[name].wait(timeout=900) == 0,
+          f"the synthesis of the {name} capture failed")
+
+
+def partial_run(card, only, synth) -> int:
     """The named mesh phases alone (work on them); no result line."""
+    await_capture(synth, "slice")
+    wide, freqs, fc, truth = stimulus.make_capture(**CAPTURES["slice"])
+    raw = stimulus.to_u8(wide)
     with tempfile.TemporaryDirectory(prefix="vdl2_smoke_") as tmp:
         path = os.path.join(tmp, "cap.cu8")
         raw.tofile(path)
@@ -951,24 +1382,34 @@ def partial_run(card, only, wide, raw, freqs, fc, truth) -> int:
                            cli_phase(card, path, "cu8", freqs, fc))
         if "multihost" in only:
             multihost_phase(card, path, freqs, fc, truth, len(raw) // 2)
-    print(card)
-    print(json.dumps({"partial": sorted(only)}))
     return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    partial = MESH_PHASES + WIDE_PHASES
     ap.add_argument("--phases", default=None,
-                    help="comma list of " + ", ".join(MESH_PHASES) + ": run "
+                    help="comma list of " + ", ".join(partial) + ": run "
                          "only these, and print no result line")
     only = ap.parse_args(argv).phases
     only = None if only is None else set(only.split(","))
-    if only is not None and not only <= set(MESH_PHASES):
-        ap.error(f"--phases takes {', '.join(MESH_PHASES)}")
+    if only is not None and not only <= set(partial):
+        ap.error(f"--phases takes {', '.join(partial)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card visible to torch", file=sys.stderr)
         return 2
-    card = card_string()
+    synth = start_synthesis(captures_of(only))
+    try:
+        return run_phases(card_string(), only, synth)
+    finally:
+        for proc in synth.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def run_phases(card, only, synth) -> int:
+    """Every phase (only: the named ones) on the card."""
     emit("card", card, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count())
@@ -990,19 +1431,30 @@ def main(argv=None) -> int:
          build_s=time.perf_counter() - t)
     check(built, "the native deframer did not build or load")
 
-    t = time.perf_counter()
-    wide, freqs, fc, truth = stimulus.make_capture(FS, N_CHAN, SECONDS)
-    raw = stimulus.to_u8(wide)
-    air_wide, air_freqs, air_fc, air_truth = stimulus.make_capture(
-        AIR_FS, AIR_CHAN, AIR_SECONDS)
-    caps = format_captures(wide, air_wide)
-    emit("capture", card, channels=N_CHAN, seconds=SECONDS, fc=fc,
-         bursts=len(truth), air_fs=AIR_FS, air_channels=AIR_CHAN,
-         air_seconds=AIR_SECONDS, air_fc=air_fc, air_bursts=len(air_truth),
-         synth_s=time.perf_counter() - t)
-
     if only is not None:
-        return partial_run(card, only, wide, raw, freqs, fc, truth)
+        if only & set(WIDE_PHASES):
+            wide_run(card, synth, only)
+        if only & set(MESH_PHASES):
+            partial_run(card, only, synth)
+        print(card)
+        print(json.dumps({"partial": sorted(only)}))
+        return 0
+
+    t = time.perf_counter()
+    await_capture(synth, "slice")
+    wide, freqs, fc, truth = stimulus.make_capture(**CAPTURES["slice"])
+    raw = stimulus.to_u8(wide)
+    await_capture(synth, "air")
+    air_wide, air_freqs, air_fc, air_truth = stimulus.make_capture(
+        **CAPTURES["air"])
+    # the slices after the first three decode the capture's first CUT_SECONDS
+    n_cut = int(CUT_SECONDS * FS)
+    raw_cut = raw[: 2 * n_cut]
+    caps = format_captures(wide[:n_cut], air_wide)
+    emit("capture", card, channels=N_CHAN, seconds=SECONDS, fc=fc,
+         bursts=len(truth), cut_seconds=CUT_SECONDS, air_fs=AIR_FS,
+         air_channels=AIR_CHAN, air_seconds=AIR_SECONDS, air_fc=air_fc,
+         air_bursts=len(air_truth), wait_s=time.perf_counter() - t)
 
     kern = {s: kernel_phase(card, raw, freqs, fc, s) for s in (2.0, 4.0)}
     k2, k1 = kernel_k2_phase(card, raw, freqs, fc, stimulus.to_u8(air_wide),
@@ -1011,6 +1463,7 @@ def main(argv=None) -> int:
     # launches of the main-path decodes, each counted from 0
     launches = slice_phase(card, raw, freqs, fc, truth)
     launches.update(slice_pallas_phase(card, raw, freqs, fc, truth))
+    launches.update(slice_xla_phase(card, raw, freqs, fc, truth))
     for counted in slice_formats_phase(
             card, caps, freqs, fc, truth,
             (air_freqs, air_fc, air_truth)).values():
@@ -1018,36 +1471,30 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="vdl2_smoke_") as tmp:
         path = os.path.join(tmp, "cap.cu8")
         raw.tofile(path)
-        cs16_path = os.path.join(tmp, "cap.cs16")
+        cut_path = os.path.join(tmp, "cut.cu8")
+        raw_cut.tofile(cut_path)
+        cs16_path = os.path.join(tmp, "cut.cs16")
         caps[0].tofile(cs16_path)
         air_path = os.path.join(tmp, "air.f32")
         caps[2].tofile(air_path)
-        readers = {"cu8": cli.CaptureReader(path, "cu8"),
+        readers = {"cu8": cli.CaptureReader(cut_path, "cu8"),
                    "cs16": cli.CaptureReader(cs16_path, "cs16")}
-        k1.extend(kernel_modes_phase(card, raw, readers["cu8"], freqs, fc))
-        launches.update(slice_xla_phase(card, raw, freqs, fc, truth))
-        launches.update(slice_bf16_phase(card, raw, freqs, fc, truth))
+        k1.extend(kernel_modes_phase(card, raw_cut, readers["cu8"], freqs, fc))
+        launches.update(slice_bf16_phase(card, raw_cut, freqs, fc, truth))
         launches.update(slice_fir_phase(card, readers["cu8"], freqs, fc,
                                         truth))
         launches.update(slice_nonfused_phase(card, readers, freqs, fc, truth))
-        launches.update(live_phase(card, path, freqs, fc, truth))
-        full = cli_phase(card, path, "cu8", freqs, fc)
-        cli_phase(card, path, "cu8", freqs, fc, ["--pallas"])
-        cli_phase(card, air_path, "f32real", air_freqs,
-                  air_fc - AIR_FS // 4,
-                  ["--format", "f32real", "--fs", str(AIR_FS)])
-        for extra in (["--sync-impl", "xla"], ["--compute", "bf16"],
-                      ["--channel-filter", "fir"]):
-            cli_phase(card, path, "cu8", freqs, fc, extra)
-        live_out = cli_phase(card, path, "cu8", freqs, fc, stdin=True)
-        check(live_out == full, "--iq - printed other lines than the file")
-        cli_checkpoint_phase(card, path, freqs, fc, full)
+        launches.update(live_phase(card, cut_path, freqs, fc, truth))
         mesh_launches, mesh_k1 = mesh_phase(card, raw, freqs, fc, truth)
         launches.update(mesh_launches)
         k1.append(mesh_k1)
         launches.update(mesh_wideband_phase(card, wide, freqs, fc, truth))
-        cli_mesh_phase(card, path, freqs, fc, full)
-        multihost_phase(card, path, freqs, fc, truth, len(raw) // 2)
+        processes_phase(card, path, air_path, freqs, fc, air_freqs, air_fc,
+                        truth, len(raw) // 2)
+    wide_launches, wide_k1, wide_k2 = wide_run(card, synth)
+    launches.update(wide_launches)
+    k1.extend(wide_k1)
+    k2.extend(wide_k2)
 
     kernels = []
     for mode in sync.MODES:

@@ -50,14 +50,17 @@ def test_cpu_tensor_takes_plain_version(mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 211_848), (3, 1_000), (1, 130),
                                    (2, 1_024), (1, 1_025), (5, 2_047),
-                                   (1, 1)])
+                                   (1, 1), (64, 84_000), (76, 84_000),
+                                   (760, 46_368), (2000, 21_000)])
 @pytest.mark.parametrize("mode", sync.MODES)
 def test_sync_kernel_matches_plain_on_card(mode, shape):
     """On a CUDA tensor the wrapper launches csrc/sync_scan.cu (one launch
     counted) and agrees with the plain version of its mode: at the 2 s
     block, at streams shorter than one 1024-position tile and than the
     sync window, at exactly one tile, one past it and one short of two,
-    and with a single channel."""
+    with a single channel, and at the wide plans' channel counts (64, 76,
+    the 760-channel band's 0.5 s block with its margins, 2000 channels of
+    0.25 s), where the channel count fills the grid's second dimension."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the sync kernel has no CPU mode")
     y = torch.tensor(_stream(shape, 3), device="cuda")
@@ -71,6 +74,30 @@ def test_sync_kernel_matches_plain_on_card(mode, shape):
     np.testing.assert_allclose(err.cpu().numpy(), err_r.cpu().numpy(),
                                **ERR_TOL)
     np.testing.assert_allclose(fr.cpu().numpy(), fr_r.cpu().numpy(), **FR_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sync.MODES)
+def test_sync_kernel_takes_strided_and_unaligned_views(mode):
+    """The kernel reads (re, im) pairs as 8-byte words of a dense block; a
+    view with other strides, or one that starts at an odd float, is
+    copied first and gives the same bits as the dense tensor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sync kernel has no CPU mode")
+    y = torch.tensor(_stream((3, 5_000), 4), device="cuda")
+    err, fr = sync.sync_scan(y, mode)
+    wide = torch.zeros((3, 6_000, 2), device="cuda")
+    wide[:, 500:5_500] = y
+    strided = wide[:, 500:5_500]
+    assert not strided.is_contiguous()
+    flat = torch.cat([y.new_zeros(1), y.reshape(-1)])
+    shifted = flat[1:].reshape(y.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 == 4
+    for view in (strided, shifted):
+        before = sync.launches[mode]
+        err_v, fr_v = sync.sync_scan(view, mode)
+        assert sync.launches[mode] == before + 1
+        assert torch.equal(err_v, err) and torch.equal(fr_v, fr)
 
 
 @pytest.mark.cuda
@@ -185,6 +212,7 @@ def test_window_slots_transpose_the_windows(sdrclk):
     (5, 7, 2_000_000, False), (2, 3, 6_000_000, False),
     (8, 9, 9_000_000, True), (8, 40, 10_000_000, True),
     (3, 7, 20_000_000, False), (2, 4, 38_000_000, True),
+    (64, 1024, 2_000_000, True), (76, 1024, 2_000_000, True),
 ])
 def test_chan_u8_kernel_matches_plain_on_card(n_chan, b, fs, lo_wrap):
     """On CUDA tensors the wrapper launches csrc/chan_u8.cu (one launch
@@ -194,7 +222,8 @@ def test_chan_u8_kernel_matches_plain_on_card(n_chan, b, fs, lo_wrap):
     one channel and one period, with a channel count that leaves the
     last channel group part empty, and at rates whose period no longer
     fits a block's shared memory whole (9 Msps just does; at 10, 20 and
-    38 Msps the 84 windows are cut into chunks)."""
+    38 Msps the 84 windows are cut into chunks), and at 64 and 76
+    channels of a 32-period-aligned 1 s block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the channelizer kernel has no CPU "
                     "mode")

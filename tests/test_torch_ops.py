@@ -19,10 +19,10 @@ from vdlm2dec_tpu.ops import channelizer as jch
 from vdlm2dec_tpu.ops import demod as jdemod
 from vdlm2dec_tpu.ops import header as jhdr
 from vdlm2dec_tpu.ops import rs_fec as jrs
-from vdlm2dec_tpu.golden.dsp import mix_and_decimate
 from vdlm2dec_tpu.ops.pallas_channelizer import channelize_u8_pallas
 from vdlm2dec_tpu.ops.pallas_sync import sync_scan_pallas
 from vdlm2dec_tpu.pipeline import _raw_to_planes, _raw_to_planes_split
+from vdlm2dec_tpu_torch.golden.dsp import mix_and_decimate
 from vdlm2dec_tpu_torch.ops import assembly, chan_u8, demod, header, rs_fec, sync
 from vdlm2dec_tpu_torch.ops.channelizer import (
     Channelizer,

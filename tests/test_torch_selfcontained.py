@@ -124,9 +124,10 @@ def test_port_imports_and_decodes_with_the_jax_package_blocked(tmp_path):
     res = json.loads(r.stdout.splitlines()[-1])
     assert res["rc"] == [0, 0, 0] and res["loaded"] == []
     for name in ("cli", "pipeline", "scan", "stage_times", "stimulus",
+                 "bench", "snr_sweep", "kernel_times", "trigger_compare",
                  "host.decoder", "host.native", "ops.sync", "ops.chan_u8",
-                 "io.live", "golden.codec", "parallel.sharding",
-                 "parallel.multihost"):
+                 "io.live", "golden.codec", "golden.dsp",
+                 "parallel.sharding", "parallel.multihost"):
         assert f"vdlm2dec_tpu_torch.{name}" in res["modules"]
     assert len(res["lines"]) == 1
     assert json.loads(res["lines"][0])["text"] == "STANDS ALONE"
@@ -172,6 +173,7 @@ def _normalised(path: str) -> str:
 COPIES = {
     "constants.py": "constants.py",
     "golden/codec.py": "golden/codec.py",
+    "golden/dsp.py": "golden/dsp.py",
     "io/sdr.py": "io/sdr.py",
     "io/live.py": "io/live.py",
     "host/avlc.py": "host/avlc.py",

@@ -162,8 +162,11 @@ def sync_scan(y: torch.Tensor, mode: str = "stream"
         return _REFS[mode](y)
     if y.device.type != "cuda":
         raise ValueError(f"no sync kernel for device {y.device}")
-    if not y.is_contiguous() or y.data_ptr() % 8:
-        raise ValueError("y must be contiguous and 8-byte aligned")
+    # the kernel reads (re, im) pairs as 8-byte words from a dense block: a
+    # strided view, or one at an odd word offset, is copied into a fresh one
+    y = y.contiguous()
+    if y.data_ptr() % 8:
+        y = y.clone()
     from .. import _build
 
     lib = _build.load()

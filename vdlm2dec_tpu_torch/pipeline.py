@@ -68,11 +68,20 @@ TWO_PI = 2.0 * math.pi
 # it; its sync metric is "stream"'s (branch 0 of the same filter)
 SYNC_IMPLS = ("xla", "stream", "fused")
 
+# the device program's stages, in order, as its mark argument names them
+# ("channelize" is wideband_raw_decode's; the rest device_decode_packed's)
+STAGES = ("channelize", "sync", "triggers", "compaction", "demod", "header",
+          "assembly", "rs", "pack")
+
+
+def _no_mark(stage: str) -> None:
+    pass
+
 
 def device_decode_packed(y: torch.Tensor, max_candidates: int,
                          max_symbols: int, max_out: int, chan_base: int = 0,
                          core_start: int = 0, core_len: int = 0,
-                         sync_impl: str = "stream") -> torch.Tensor:
+                         sync_impl: str = "stream", mark=None) -> torch.Tensor:
     """(C, T, 2) decimated streams -> (M, 2096) uint8 packed rows, one per
     decode slot (layout in _tables.PACKED_ROW_BYTES).
 
@@ -82,15 +91,21 @@ def device_decode_packed(y: torch.Tensor, max_candidates: int,
     inside the core region are owned, and t0 comes back core-relative.
     chan_base (a mesh shard's first global channel) is added to the
     packed chan word.  compute does not enter here: bf16 applies to the
-    channelizer only."""
+    channelizer only.  mark (measurement only: stage_times.py) is called
+    with a stage's name (STAGES) where that stage's work has been
+    enqueued; it changes nothing of what runs."""
     if sync_impl not in SYNC_IMPLS:
         raise ValueError(f"sync_impl must be one of {SYNC_IMPLS}, "
                          f"got {sync_impl!r}")
     dev = y.device
+    if mark is None:
+        mark = _no_mark
     err, fr = sync_scan(y, "stream" if sync_impl == "xla" else sync_impl)
+    mark("sync")
     t0, of, df, valid, q = find_triggers(err, fr, max_candidates)
     if core_len:
         valid = valid & (t0 >= core_start) & (t0 < core_start + core_len)
+    mark("triggers")
 
     c, k = t0.shape
     n = c * k
@@ -106,19 +121,23 @@ def device_decode_packed(y: torch.Tensor, max_candidates: int,
     ofs = of.reshape(n)[order]
     dfs = df.reshape(n)[order]
     live = valid.reshape(n)[order]
+    mark("compaction")
 
     if sync_impl == "xla":
         soft = demod_candidates_flat(y, chan, t0s, ofs, dfs, max_symbols,
                                      polyphase_filter(y))
     else:
         soft = demod_candidates_inline(y, chan, t0s, ofs, dfs, max_symbols)
+    mark("demod")
     length, nbrow, nlbyte, ok = header_decode(soft[:, :25])
+    mark("header")
     need = 8 * MAX_TX_BYTES
     data_soft = soft[:, 25:25 + need]
     if data_soft.shape[1] < need:
         data_soft = torch.nn.functional.pad(
             data_soft, (0, need - data_soft.shape[1]))
     blocks, consumed = assemble_blocks(data_soft, nbrow, nlbyte)
+    mark("assembly")
 
     rows = blocks.reshape(m * 8, 255)
     is_last = torch.arange(8, device=dev)[None, :] == (nbrow[:, None] - 1)
@@ -126,6 +145,7 @@ def device_decode_packed(y: torch.Tensor, max_candidates: int,
                            torch.where(nlbyte[:, None] <= 67, 1, 0))
     eras_class = torch.where(is_last, cls_last, 0).reshape(-1)
     fixed, counts = rs_decode_rows(rows, eras_class)
+    mark("rs")
 
     # block-wide counters ride in row 0 only, so buffers of several
     # blocks or shards concatenate and still sum correctly
@@ -150,7 +170,9 @@ def device_decode_packed(y: torch.Tensor, max_candidates: int,
     ], dim=1)
     meta_u8 = meta.contiguous().view(torch.uint8).reshape(m, 48)
     rs8 = (counts.reshape(m, 8) + 1).to(torch.uint8)
-    return torch.cat([fixed.reshape(m, 8 * 255), rs8, meta_u8], dim=1)
+    packed = torch.cat([fixed.reshape(m, 8 * 255), rs8, meta_u8], dim=1)
+    mark("pack")
+    return packed
 
 
 def channelize_raw(raw: torch.Tensor, ch: Channelizer, fmt: str,
@@ -180,16 +202,18 @@ def wideband_raw_decode(raw: torch.Tensor, ch: Channelizer, fmt: str,
                         use_pallas: bool, max_candidates: int,
                         max_symbols: int, max_out: int, core_start: int = 0,
                         core_len: int = 0,
-                        sync_impl: str = "stream") -> torch.Tensor:
+                        sync_impl: str = "stream", mark=None) -> torch.Tensor:
     """Native raw samples (on the device, whole periods) -> packed rows:
     the JAX package's fused device programs _wideband_u8_decode,
     _wideband_raw_decode_dft and _wideband_raw_decode_pfb
     (vdlm2dec_tpu/pipeline.py:344-475): channelize_raw, then
-    device_decode_packed."""
+    device_decode_packed.  mark as in device_decode_packed."""
     y = channelize_raw(raw, ch, fmt, use_pallas)
+    if mark is not None:
+        mark("channelize")
     return device_decode_packed(y, max_candidates, max_symbols, max_out,
                                 core_start=core_start, core_len=core_len,
-                                sync_impl=sync_impl)
+                                sync_impl=sync_impl, mark=mark)
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:

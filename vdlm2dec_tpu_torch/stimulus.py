@@ -4,6 +4,8 @@ capture with known bursts on every channel, and its cu8 quantisation.
 `make_capture` and `to_u8` are the JAX package's benchmark stimulus
 (bench.py at the repository root), kept here so this package needs nothing
 outside itself; `tests/test_torch_selfcontained.py` holds the two equal.
+One addition: `also_active` names channels that carry bursts besides every
+active_every-th one (empty by default, which is the original's plan).
 """
 from __future__ import annotations
 
@@ -17,11 +19,21 @@ from .constants import DEMOD_RATE
 from .io.sdr import RTL_DC_OFFSET
 
 
+def active_channels(n_channels: int, active_every: int = 1,
+                    also_active: tuple[int, ...] = ()) -> list[int]:
+    """The channels of a plan that carry bursts: every active_every-th
+    one and those named in also_active, in channel order."""
+    return [ci for ci in range(n_channels)
+            if ci % active_every == 0 or ci in also_active]
+
+
 def make_capture(fs: int, n_channels: int, seconds: float, seed: int = 0,
                  spacing: int = 50_000, active_every: int = 1,
-                 base: int | None = None, impaired: bool = True):
+                 base: int | None = None, impaired: bool = True,
+                 also_active: tuple[int, ...] = ()):
     """Wideband capture with periodic bursts on every active_every-th
-    channel (sync/filter cost is per-channel regardless of traffic, so
+    channel and on the channels of also_active (sync/filter cost is
+    per-channel regardless of traffic, so
     sparse activity keeps large-channel-count synthesis affordable).
 
     impaired=True (the default) gives every burst a random
@@ -45,7 +57,8 @@ def make_capture(fs: int, n_channels: int, seconds: float, seed: int = 0,
     cache = os.path.join(
         tempfile.gettempdir(),
         f"vdlm2_torch_stimulus_{fs}_{n_channels}_{seconds}_{seed}_{spacing}_"
-        f"{active_every}_{base}_{int(impaired)}.npz",
+        f"{active_every}_{base}_{int(impaired)}"
+        f"{''.join(f'_{ci}' for ci in also_active)}.npz",
     )
     if os.path.exists(cache):
         try:
@@ -86,9 +99,8 @@ def make_capture(fs: int, n_channels: int, seconds: float, seed: int = 0,
     total_bb = int(DEMOD_RATE * seconds)
     wide = np.zeros(total_wide, dtype=np.complex128)
     truth: list[tuple[int, bytes, int, int]] = []
-    for ci, f in enumerate(freqs):
-        if ci % active_every:
-            continue
+    for ci in active_channels(n_channels, active_every, also_active):
+        f = freqs[ci]
         bb = np.zeros(total_bb, dtype=np.complex128)
         # stagger start positions per channel, WRAPPED into the first half
         # of the capture so every active channel gets at least one burst
