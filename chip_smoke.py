@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
     python3 chip_smoke.py --phases mesh,mesh_wideband,cli_mesh,multihost
-                                   # only these (of the mesh phases and of
-                                   # bench_quick, wide_64, wide_76, band_760,
-                                   # kchan_2000, k2_wide, stages, snr), for
-                                   # work on them: prints no result line
+                                   # only these (of the mesh phases, scaling,
+                                   # drive_formats, soak and of bench_quick,
+                                   # pipelined_workers, wide_64, wide_76,
+                                   # band_760, kchan_2000, k2_wide, stages,
+                                   # snr), for work on them: prints no
+                                   # result line
 
 Phases, each printed as one JSON line with the card's name and power limit:
   card       nvidia-smi name and power limit, torch and CUDA versions
@@ -103,7 +105,25 @@ Phases, each printed as one JSON line with the card's name and power limit:
              (and, on two or more cards, one card a worker over NCCL), one
              shot and windowed (--block-seconds 2 --dispatch-depth 2) over
              the whole capture: the FRAME lines of the two workers equal
-             the one-process job's, none twice, and the truth
+             the one-process job's, none twice, and the truth.  On four
+             or more cards also multihost_nccl_2x2: two workers with two
+             cards each over NCCL (the halos staged on a worker's first
+             card and fanned out to its second), windowed
+  scaling    scaling_bench.run_p at P = 1 and 2 on the slice capture (1 s
+             windows, one card a worker): on one card the two workers share
+             it over gloo (shared_card, no efficiency), on two or more each
+             has its own over NCCL; the FRAME sets equal at both P and the
+             truth, with each job's rate
+  drive_formats  the drive_formats tool as a process per format (cu8, cs16,
+             cf32, f32real at 5 and at 6 Msps; 4 s x 8 channels): the port's
+             CLI on each synthesized capture gives back every text, rc 0
+  soak       the soak_compare tool as processes: clean whole (2 ch x 10 s)
+             and cfo at 6 s with --stream (8 ch): every transmitted burst
+             on its own frequency and nothing else, no slot overflow, the
+             compiled reference reported as not built where it is absent.
+             The processes of drive_formats and soak start first in the
+             CLI pool, scaling beside the multihost jobs on a thread of
+             its own
   bench_quick  the bench program (vdlm2dec_tpu_torch.bench) in-process at
              its 8-channel sizes: the primary leg (4 s blocks through
              PipelinedDecoder, three passes of six), its device leg (the
@@ -111,6 +131,11 @@ Phases, each printed as one JSON line with the card's name and power limit:
              matmul rate, the HBM read rate and the front's share) and the
              paced latency leg at 0.25 s blocks: full recall, no overflow,
              at least three passes each, K1 once per block
+  pipelined_workers  the primary leg with two fetch threads
+             (bench.run_config(fetch_workers=2)), then its block decoded six
+             times through PipelinedDecoder with one and with two fetch
+             threads: full recall, no overflow, the same frames block by
+             block, K1 once per block
   wide_64, wide_76  the bench's 64- and 76-channel legs (25 kHz spacing,
              residue-space channelizer, 1 s in one block): full recall, no
              overflow, and K1 against both plain versions on the (64, T) and
@@ -173,7 +198,8 @@ from collections import Counter
 import numpy as np
 import torch
 
-from vdlm2dec_tpu_torch import _build, bench, cli, snr_sweep, stimulus
+from vdlm2dec_tpu_torch import (_build, bench, cli, scaling_bench, snr_sweep,
+                                stimulus)
 from vdlm2dec_tpu_torch._tables import (HALO_LEFT, PipelineConfig,
                                         packed_stats, period_for,
                                         stream_geometry)
@@ -189,7 +215,8 @@ from vdlm2dec_tpu_torch.parallel.sharding import (ShardedDecoder,
                                                   ShardedWidebandDecoder,
                                                   burst_window, halo_exchange,
                                                   make_mesh, shard_channels)
-from vdlm2dec_tpu_torch.pipeline import STAGES, Pipeline, channelize_raw
+from vdlm2dec_tpu_torch.pipeline import (STAGES, Pipeline, PipelinedDecoder,
+                                         channelize_raw)
 from vdlm2dec_tpu_torch.stage_times import (block_segment, slice_pipeline,
                                             stage_table)
 from vdlm2dec_tpu_torch.trigger_compare import (flip_at_threshold,
@@ -205,7 +232,7 @@ MAX_CANDIDATES = 64
 MAX_OUT = 512
 SLICE_BLOCK_S = 2.0
 CUT_SECONDS = 6.0                # of the capture, for the later slices
-PROCESSES = 4                    # CLI processes at a time
+PROCESSES = 5                    # CLI and tool processes at a time
 # kernel vs plain version: the same float32 operations in the same order
 # (no FMA contraction in the kernel), so the two must agree bit for bit.
 # The tolerance of the sync metric (trigger_compare.ERR_TOL) only says
@@ -228,7 +255,12 @@ AIR_SECONDS = 2.0
 MESH_SHAPE = (2, 4)              # chan x time
 MESH_SECONDS = 4.0               # 4 channels x 1 s a shard
 MESH_SLOTS = 64                  # decode slots a shard (ShardedDecoder's)
-MESH_PHASES = ("mesh", "mesh_wideband", "cli_mesh", "multihost")
+MESH_PHASES = ("mesh", "mesh_wideband", "cli_mesh", "multihost", "scaling")
+TOOL_PHASES = ("drive_formats", "soak")
+SCALING_BLOCK_S = 1.0            # scaling_bench's default window
+# the tools' processes: drive_formats per format, the soak's scenarios
+DRIVE_FORMATS = ("cu8", "cs16", "cf32", "f32real5", "f32real6")
+SOAKS = (("clean",), ("cfo", "--seconds", "6", "--stream"))
 # the bench's legs at width, and the measurement modules
 BENCH_SYMBOLS = 2048             # the bench's default demod window
 WIDE_PLANS = {
@@ -238,7 +270,8 @@ WIDE_PLANS = {
     "kchan_2000": bench.KCHAN_LEG,
 }
 WIDE_BLOCK_S = {"band_760": bench.BAND_BLOCK_S}   # streamed in blocks
-WIDE_PHASES = ("bench_quick", *WIDE_PLANS, "k2_wide", "stages", "snr")
+WIDE_PHASES = ("bench_quick", "pipelined_workers", *WIDE_PLANS, "k2_wide",
+               "stages", "snr")
 BENCH_SECONDS = 4.0              # the bench's default block
 LATENCY_SECONDS = 8.0            # run_latency's default feed
 
@@ -273,7 +306,8 @@ CAPTURES = {
 # the phases of --phases that decode each capture
 CAPTURE_PHASES = {
     "kchan_2000": ("kchan_2000",), "band_760": ("band_760", "stages"),
-    "slice": (*MESH_PHASES, "stages"), "bench_primary": ("bench_quick",),
+    "slice": (*MESH_PHASES, "stages"),
+    "bench_primary": ("bench_quick", "pipelined_workers"),
     "bench_latency": ("bench_quick",), "wide_76": ("wide_76", "k2_wide"),
     "wide_64": ("wide_64", "k2_wide"), "air": (),
 }
@@ -1036,9 +1070,13 @@ def multihost_phase(card, path, freqs, fc, truth, n_samples):
     modes = {"oneshot": [],
              "windowed": ["--block-seconds", str(SLICE_BLOCK_S),
                           "--dispatch-depth", "2", "--timing"]}
-    jobs = [("gloo", ["cuda:0", "cuda:0"])]
-    if torch.cuda.device_count() >= 2:
-        jobs.append(("nccl", ["cuda:0", "cuda:1"]))
+    jobs = [("multihost", "gloo", ["cuda:0", "cuda:0"])]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        jobs.append(("multihost", "nccl", ["cuda:0", "cuda:1"]))
+    if cards >= 4:
+        jobs.append(("multihost_nccl_2x2", "nccl",
+                     ["cuda:0,cuda:1", "cuda:2,cuda:3"]))
     want = truth_in_span(truth, n_samples, FS)
     for mode, extra in modes.items():
         t = time.perf_counter()
@@ -1046,26 +1084,23 @@ def multihost_phase(card, path, freqs, fc, truth, n_samples):
                                           device="cuda:0", timeout=600))
         emit("multihost", card, mode=mode, processes=1, backend=None,
              frame_lines=sum(single.values()), wall_s=time.perf_counter() - t)
-        for backend, devices in jobs:
+        for phase, backend, devices in jobs:
             t = time.perf_counter()
             outs = launch_local(2, base + extra, local_devices=4,
                                 device=devices, backend=backend, timeout=600)
             wall = time.perf_counter() - t
             lines = frame_lines(outs)
-            got = Counter()
-            for ln in lines.elements():
-                _tag, chan, _t0, hexed = ln.split()
-                got[int(chan), bytes.fromhex(hexed)[1:-3]] += 1
+            got = Counter(map(scaling_bench.frame_key, lines.elements()))
             stats = [json.loads(ln[6:]) for out in outs
                      for ln in out.splitlines() if ln.startswith("STATS ")]
-            emit("multihost", card, mode=mode, processes=2, backend=backend,
+            emit(phase, card, mode=mode, processes=2, backend=backend,
                  devices=devices, frame_lines=sum(lines.values()),
                  per_process=[sum(frame_lines([o]).values()) for o in outs],
                  truth_bursts=sum(want.values()),
                  missed=sum((want - got).values()),
                  extra=sum((got - want).values()),
                  equals_one_process=lines == single, stats=stats, wall_s=wall)
-            what = f"multihost {mode} over {backend}"
+            what = f"{phase} {mode} over {backend}"
             check(max(lines.values(), default=0) == 1,
                   f"{what}: a FRAME line came out twice")
             check(lines == single, f"{what}: the two workers' FRAME lines "
@@ -1076,29 +1111,118 @@ def multihost_phase(card, path, freqs, fc, truth, n_samples):
                   "not finish")
 
 
+def scaling_phase(card, path, freqs, fc, truth, n_samples):
+    """scaling_bench.run_p at P = 1 and 2 over the slice capture, one card
+    a worker (both on the one card over gloo when it is alone): the same
+    FRAME set at both P and the truth; efficiency only where no card is
+    shared."""
+    cards = torch.cuda.device_count()
+    by_p = {p: [scaling_bench.run_p(p, path, [f / 1e6 for f in freqs], fc,
+                                    SCALING_BLOCK_S, 1, "cuda", cards, 600)]
+            for p in (1, 2)}
+    want = truth_in_span(truth, n_samples, FS)
+    frames = [set(r["frames"]) for runs in by_p.values() for r in runs]
+    got = Counter(map(scaling_bench.frame_key, frames[0]))
+    for r in scaling_bench.summarize(by_p):
+        emit("scaling", card, **r, frames=len(frames[0]),
+             recall=f"{sum((got & want).values())}/{sum(want.values())}")
+    check(all(f == frames[0] for f in frames),
+          "scaling: the FRAME sets differ between P = 1 and 2")
+    check(got == want, "scaling: decoded frames differ from the truth")
+    check(by_p[2][0]["shared_card"] == (cards < 2)
+          and by_p[2][0]["backend"] == ("gloo" if cards < 2 else "nccl"),
+          f"scaling: P = 2 on {by_p[2][0]['devices']} over "
+          f"{by_p[2][0]['backend']}")
+
+
+def run_tool(module, *args):
+    """python -m vdlm2dec_tpu_torch.<module> args as a process: (rc, the
+    JSON of its stdout's last line, its stderr's tail, wall seconds)."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"vdlm2dec_tpu_torch.{module}",
+                        *args], capture_output=True, text=True, timeout=900,
+                       cwd=REPO)
+    lines = r.stdout.strip().splitlines()
+    return (r.returncode, json.loads(lines[-1]) if lines else None,
+            r.stderr[-2000:], time.perf_counter() - t)
+
+
+def drive_formats_phase(card, started):
+    """The drive_formats tool's lines, one process a format (started:
+    spec -> its run_tool future): every synthesized text back, rc 0."""
+    for spec, fut in started.items():
+        rc, res, err, wall = fut.result()
+        res = dict(res or {})
+        res.pop("card", None)
+        emit("drive_formats", card, tool_rc=rc, **res, tool_wall_s=wall)
+        check(rc == 0 and res.get("fmt") == spec and res["rc"] == 0
+              and res["decoded"] == res["bursts"] > 0 and not res["missing"],
+              f"drive_formats {spec}: rc {rc}, {res}: {err}")
+
+
+def soak_phase(card, started):
+    """The soak tool's summaries (started: scenario arguments -> its
+    run_tool future): every transmitted burst and nothing else, no
+    overflow, and the reference reported as it is (built or not)."""
+    for scenario, fut in started.items():
+        rc, res, err, wall = fut.result()
+        res = dict(res or {})
+        res.pop("card", None)
+        emit("soak", card, args=list(scenario), rc=rc, **res,
+             tool_wall_s=wall)
+        check(rc == 0 and "tx" in res
+              and res["recall"] == f"{res['tx']}/{res['tx']}"
+              and res["extra"] == res["candidates_overflow"] == 0,
+              f"soak {scenario}: rc {rc}, {res}: {err}")
+        ref = res["reference"]
+        check(ref is None or ref["strict_superset"],
+              f"soak {scenario}: the reference decoded frames the port "
+              f"did not: {ref}")
+
+
+def start_tools(pool, only=TOOL_PHASES) -> tuple[dict, dict]:
+    """drive_formats' and the soak's processes (those of the phases in
+    only), started on the pool."""
+    formats = {spec: pool.submit(run_tool, "drive_formats", "--formats", spec)
+               for spec in DRIVE_FORMATS if "drive_formats" in only}
+    soaks = {args: pool.submit(run_tool, "soak_compare", "--scenario", *args)
+             for args in SOAKS if "soak" in only}
+    return formats, soaks
+
+
 def processes_phase(card, path, air_path, freqs, fc, air_freqs, air_fc, truth,
                     n_samples):
     """The phases that run the port as processes: cli, cli_checkpoint,
-    cli_mesh and multihost.  A process takes ten seconds and more to start
-    and reach the card, so the CLI runs are started together, PROCESSES at
-    a time, beside the multihost jobs (one after another on a thread of
-    their own), and each is then held to its in-process decode as before.
-    Nothing that is timed runs meanwhile."""
+    cli_mesh, drive_formats, soak, multihost and scaling.  A process takes
+    ten seconds and more to start and reach the card, so the tools' and
+    the CLI's runs are started together, PROCESSES at a time, beside the
+    multihost jobs and the scaling jobs (each one after another on a
+    thread of their own), and each is then held to what it must give.
+    Nothing that is timed runs meanwhile (scaling's rates on one card,
+    taken beside them, are no measurement)."""
     air = (air_path, air_freqs, air_fc - AIR_FS // 4,
            ["--format", "f32real", "--fs", str(AIR_FS)])
     flag_sets = ([], ["--pallas"], ["--sync-impl", "xla"],
                  ["--compute", "bf16"], ["--channel-filter", "fir"])
-    with concurrent.futures.ThreadPoolExecutor(PROCESSES + 1) as pool:
+    with concurrent.futures.ThreadPoolExecutor(PROCESSES + 2) as pool:
         multihost = pool.submit(multihost_phase, card, path, freqs, fc, truth,
                                 n_samples)
-        runs = [start_cli(pool, path, freqs, fc, extra)
-                for extra in flag_sets]
+        scaling = pool.submit(scaling_phase, card, path, freqs, fc, truth,
+                              n_samples)
+        # the plain CLI run first (cli_checkpoint needs its lines), then
+        # the tools' processes, the longest: each synthesizes its capture,
+        # then runs the CLI or decodes
+        runs = [start_cli(pool, path, freqs, fc)]
+        formats, soaks = start_tools(pool)
+        runs += [start_cli(pool, path, freqs, fc, extra)
+                 for extra in flag_sets[1:]]
         air_run = start_cli(pool, *air)
         stdin_run = start_cli(pool, path, freqs, fc, stdin=True)
         mesh_runs = {shape: start_cli(pool, path, freqs, fc,
                                       ["--mesh", shape])
                      for shape in mesh_shapes()}
         full = cli_phase(card, path, "cu8", freqs, fc, started=runs[0])
+        cli_checkpoint_phase(card, path, freqs, fc, full)
         cli_phase(card, path, "cu8", freqs, fc, ["--pallas"],
                   started=runs[1])
         cli_phase(card, air[0], "f32real", *air[1:], started=air_run)
@@ -1107,9 +1231,11 @@ def processes_phase(card, path, air_path, freqs, fc, air_freqs, air_fc, truth,
         live_out = cli_phase(card, path, "cu8", freqs, fc, stdin=True,
                              started=stdin_run)
         check(live_out == full, "--iq - printed other lines than the file")
-        cli_checkpoint_phase(card, path, freqs, fc, full)
         cli_mesh_phase(card, path, freqs, fc, full, mesh_runs)
+        drive_formats_phase(card, formats)
+        soak_phase(card, soaks)
         multihost.result()
+        scaling.result()
 
 
 def counted_bench_leg(card, phase, leg, run, blocks_per_decode, decodes,
@@ -1176,6 +1302,55 @@ def bench_quick_phase(card, synth):
           and lat["blocks"] == lat_blocks - lat["warmup_blocks"]
           and lat["p50_ms"] > 0 and isinstance(lat["stalls"], int)
           and lat["h2d_block_ms"] > 0, f"bench_quick/latency: {lat}")
+    return launches
+
+
+def pipelined_workers_phase(card, synth):
+    """The primary leg with two fetch threads, then the primary's 4 s
+    block decoded six times through PipelinedDecoder with one and with
+    two: the same frames block by block, each the truth."""
+    iters = 6
+    route = dict(device="cuda", chan_impl="auto", sync_impl="stream")
+    await_capture(synth, "bench_primary")
+    out, counted = counted_bench_leg(
+        card, "pipelined_workers", "primary",
+        lambda: bench.run_config(N_CHAN, BENCH_SECONDS, iters, BENCH_SYMBOLS,
+                                 None, False, fetch_workers=2, **route),
+        1, 1 + bench.PASSES * iters)
+    launches = Counter(counted)
+    check_wall_leg("pipelined_workers/primary", out)
+    check(out["fetch_workers"] == 2, f"pipelined_workers: {out}")
+    pipe, raw, truth = bench.leg_pipeline(N_CHAN, BENCH_SECONDS, BENCH_SYMBOLS,
+                                          None, False, **route)
+    raw = bench.whole_tiles(pipe, raw)
+    want = truth_in_span(truth, len(raw) // 2, FS)
+    frames = {}
+    for workers in (1, 2):
+        pd = PipelinedDecoder(pipe, workers=workers)
+        reset_launches()                       # counts of the main path
+        t = time.perf_counter()
+        try:
+            blocks = [c for _ in range(iters) for c in pd.submit(raw)]
+            blocks += list(pd.drain())
+        finally:
+            pd.close()
+        wall = time.perf_counter() - t
+        counted = main_path_launches()
+        launches.update(counted)
+        frames[workers] = [frame_counter(pipe._finish(c, 0)) for c in blocks]
+        emit("pipelined_workers", card, leg="frames", fetch_workers=workers,
+             depth=pd.depth, blocks=len(blocks),
+             recall=[f"{sum((f & want).values())}/{sum(want.values())}"
+                     for f in frames[workers]],
+             launches=counted, wall_s=wall,
+             msps=iters * len(raw) // 2 / wall / 1e6)
+        expect = dict.fromkeys(counted, 0)
+        expect["sync_scan[stream]"] = iters
+        check(counted == expect, f"pipelined_workers: launches {counted}")
+    check(len(frames[2]) == iters and frames[1] == frames[2]
+          and all(f == want for f in frames[2]),
+          "pipelined_workers: two fetch threads decode other frames than "
+          "one, or than the truth")
     return launches
 
 
@@ -1327,6 +1502,8 @@ def wide_run(card, synth, only=None):
     run = (lambda phase: only is None or phase in only)
     if run("bench_quick"):
         launches.update(bench_quick_phase(card, synth))
+    if run("pipelined_workers"):
+        launches.update(pipelined_workers_phase(card, synth))
     for phase in WIDE_PLANS:
         if any(map(run, CAPTURE_PHASES[phase])):
             legs[phase] = wide_leg(phase, synth)
@@ -1366,7 +1543,15 @@ def await_capture(synth, name) -> None:
 
 
 def partial_run(card, only, synth) -> int:
-    """The named mesh phases alone (work on them); no result line."""
+    """The named mesh and tool phases alone (work on them); no result
+    line."""
+    if only & set(TOOL_PHASES):
+        with concurrent.futures.ThreadPoolExecutor(PROCESSES) as pool:
+            formats, soaks = start_tools(pool, only)
+            drive_formats_phase(card, formats)
+            soak_phase(card, soaks)
+    if not only & set(MESH_PHASES):
+        return 0
     await_capture(synth, "slice")
     wide, freqs, fc, truth = stimulus.make_capture(**CAPTURES["slice"])
     raw = stimulus.to_u8(wide)
@@ -1382,12 +1567,14 @@ def partial_run(card, only, synth) -> int:
                            cli_phase(card, path, "cu8", freqs, fc))
         if "multihost" in only:
             multihost_phase(card, path, freqs, fc, truth, len(raw) // 2)
+        if "scaling" in only:
+            scaling_phase(card, path, freqs, fc, truth, len(raw) // 2)
     return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    partial = MESH_PHASES + WIDE_PHASES
+    partial = MESH_PHASES + TOOL_PHASES + WIDE_PHASES
     ap.add_argument("--phases", default=None,
                     help="comma list of " + ", ".join(partial) + ": run "
                          "only these, and print no result line")
@@ -1434,7 +1621,7 @@ def run_phases(card, only, synth) -> int:
     if only is not None:
         if only & set(WIDE_PHASES):
             wide_run(card, synth, only)
-        if only & set(MESH_PHASES):
+        if only & set(MESH_PHASES + TOOL_PHASES):
             partial_run(card, only, synth)
         print(card)
         print(json.dumps({"partial": sorted(only)}))

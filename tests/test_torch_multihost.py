@@ -247,12 +247,67 @@ def test_dispatches_in_flight_in_one_process():
         dec.dispatch_raw(np.zeros((8 * 2000, 2), np.float32), 0)
 
 
+def test_device_lists_per_worker(seam_capture, seam_two_process):
+    """A worker's entry may be a comma list of devices, over which its
+    shards are laid in turn: the seam job with one worker's four shards on
+    a two-entry list prints the FRAME lines of the plain two-process job."""
+    outs = launch_local(2, ["--y-npy", seam_capture, *SEAM_ARGS],
+                        local_devices=4, device=["cpu,cpu", "cpu"],
+                        timeout=300)
+    assert _frames(outs) == _frames(seam_two_process)
+
+
+class _FakeWorker:
+    returncode = 0
+
+    def wait(self, timeout=None):
+        return 0
+
+    def poll(self):
+        return 0
+
+
+def test_launcher_gives_nccl_workers_their_cards(monkeypatch):
+    """Two workers x two cards over nccl: each worker is started with its
+    own cards, its four shards laid over them in turn, the first its
+    --device; a card in two workers' lists is refused ("cuda" is a
+    worker's first card) before anything starts."""
+    import subprocess
+
+    cmds = []
+    monkeypatch.setattr(subprocess, "Popen",
+                        lambda cmd, **kw: cmds.append(cmd) or _FakeWorker())
+    outs = launch_local(2, ["--iq", "cap.cu8"], local_devices=4,
+                        device=["cuda:0,cuda:1", "cuda:2,cuda:3"],
+                        backend="nccl")
+    assert outs == ["", ""]
+
+    def flag(cmd, name):
+        return cmd[cmd.index(name) + 1]
+
+    assert [flag(c, "--device") for c in cmds] == ["cuda:0", "cuda:2"]
+    assert [flag(c, "--local-devices") for c in cmds] == [
+        "cuda:0,cuda:1,cuda:0,cuda:1", "cuda:2,cuda:3,cuda:2,cuda:3"]
+    assert [flag(c, "--backend") for c in cmds] == ["nccl", "nccl"]
+    assert [c[-2:] for c in cmds] == [["--iq", "cap.cu8"]] * 2
+    cmds.clear()
+    for devices, card in ((["cuda:0,cuda:1", "cuda:1,cuda:2"], "cuda:1"),
+                          (["cuda", "cuda:0"], "cuda:0")):
+        with pytest.raises(ValueError, match=f"{card} is in two"):
+            launch_local(2, [], device=devices, backend="nccl")
+    assert cmds == []
+    # gloo lets workers share a card
+    launch_local(2, [], local_devices=1, device=["cuda:0", "cuda:0"],
+                 backend="gloo")
+    assert len(cmds) == 2
+
+
 def test_launcher_fails_fast_and_leaves_no_worker(tmp_path):
     """A worker that exits non-zero raises with its stderr; nccl on a
     shared device is refused before anything starts."""
     with pytest.raises(RuntimeError, match="worker failed"):
         _cpu(2, ["--y-npy", str(tmp_path / "missing.npy"), *SEAM_ARGS])
-    with pytest.raises(ValueError, match="one card per worker"):
+    with pytest.raises(ValueError, match="cuda:0 is in two"):
         launch_local(2, [], device="cuda:0", backend="nccl")
     with pytest.raises(ValueError, match="3 devices for 2 workers"):
         launch_local(2, [], device=["cpu"] * 3)

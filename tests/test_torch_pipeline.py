@@ -218,6 +218,78 @@ def test_abandoned_stream_stops_its_fetch_thread(capture):
     assert set(threading.enumerate()) - before == set()
 
 
+def _cand_keys(cands):
+    """A block's candidates in the order yielded: integer words and the
+    burst block (the float words of / df are held in _assert_packed_match)."""
+    return [(c["chan"], c["t0"], c["length"], c["nbrow"], c["nlbyte"],
+             c["consumed"], c["block"].tobytes()) for c in cands]
+
+
+def test_pipelined_decoder_workers_match_one_worker_and_jax(capture):
+    """PipelinedDecoder(workers=2, depth=3) yields the candidates of
+    workers=1, block by block in submission order, and those of the JAX
+    package's PipelinedDecoder(workers=2); close() joins every fetch
+    thread."""
+    raw, freqs, fc, _truth = capture
+    jp, tp = _pipes(freqs, fc, "stream")
+    blocks = np.split(raw, 4)                  # 250 periods each
+    before = set(threading.enumerate())
+
+    def run(pd, n_threads):
+        out = []
+        try:
+            for blk in blocks:
+                out += [_cand_keys(c) for c in pd.submit(blk)]
+            assert len(set(threading.enumerate()) - before) == n_threads
+            out += [_cand_keys(c) for c in pd.drain()]
+        finally:
+            pd.close()
+        assert set(threading.enumerate()) - before == set()
+        return out
+
+    two = tpipe.PipelinedDecoder(tp, depth=3, workers=2)
+    assert (two.depth, two.workers) == (3, 2)
+    got = run(two, 2)
+    one = tpipe.PipelinedDecoder(tp)
+    assert (one.depth, one.workers) == (2, 1)
+    assert run(one, 1) == got
+    want = run(jpipe.PipelinedDecoder(jp, workers=2), 2)
+    assert len(got) == len(blocks) and any(got) and got == want
+
+
+def test_pipelined_decoder_many_workers_under_thread_switching(capture):
+    """More fetch threads than cores, switching every 10 us: every block
+    comes back once, in order, and the stage counters that the threads
+    fold in under the pipeline's lock lose no update."""
+    import sys
+
+    from vdlm2dec_tpu_torch.metrics import PipelineMetrics
+
+    raw, freqs, fc, _truth = capture
+    _, tp = _pipes(freqs, fc, "stream")
+    blocks = np.split(raw, 20)                 # 50 periods each
+    out, counts = {}, {}
+    interval = sys.getswitchinterval()
+    try:
+        for workers in (1, 12):
+            sys.setswitchinterval(1e-5)
+            tp.metrics = PipelineMetrics()
+            pd = tpipe.PipelinedDecoder(tp, workers=workers)
+            try:
+                got = [_cand_keys(c) for b in blocks for c in pd.submit(b)]
+                got += [_cand_keys(c) for c in pd.drain()]
+            finally:
+                pd.close()
+            assert not any(th.is_alive() for th in pd._threads)
+            out[workers] = got
+            counts[workers] = (tp.metrics.sync_candidates,
+                               tp.metrics.bursts_rejected_header)
+    finally:
+        sys.setswitchinterval(interval)
+    assert len(out[12]) == len(blocks) and out[12] == out[1]
+    assert counts[12] == counts[1] and counts[1][0] > 0
+
+
 def test_unported_configs_raise():
     kw = dict(freqs_hz=[136_975_000.0], fc_hz=136_900_000.0)
     # what the JAX package refuses by assertion

@@ -127,7 +127,8 @@ def test_port_imports_and_decodes_with_the_jax_package_blocked(tmp_path):
                  "bench", "snr_sweep", "kernel_times", "trigger_compare",
                  "host.decoder", "host.native", "ops.sync", "ops.chan_u8",
                  "io.live", "golden.codec", "golden.dsp",
-                 "parallel.sharding", "parallel.multihost"):
+                 "parallel.sharding", "parallel.multihost", "drive_formats",
+                 "soak_compare", "scaling_bench"):
         assert f"vdlm2dec_tpu_torch.{name}" in res["modules"]
     assert len(res["lines"]) == 1
     assert json.loads(res["lines"][0])["text"] == "STANDS ALONE"

@@ -18,7 +18,8 @@ Worker entry (one process per host):
         --iq capture.cu8 --fc 136900000 136.975 136.875 ...
 
 The halos travel over the backend the caller names: NCCL moves CUDA
-tensors directly and wants one card per rank; gloo takes CPU tensors, so
+tensors directly, staged on the rank's first card, and wants no card that
+another rank uses (a rank may hold several); gloo takes CPU tensors, so
 under gloo the halos are staged through host memory (and two ranks may
 share a card).  launch_local(n) spawns n workers on this machine.
 """
@@ -134,6 +135,17 @@ class MultiHostDecoder:
             return torch.device("cpu")
         return self.mesh.devices[0][0]
 
+    def _on_comm_device(self):
+        """The staging card as the current device (a no-op under gloo):
+        NCCL orders its transfers against, and work.wait() orders after
+        them, the current stream of that card, whichever card the
+        caller's current device is."""
+        import contextlib
+
+        dev = self._comm_device()
+        return torch.cuda.device(dev) if dev.type == "cuda" \
+            else contextlib.nullcontext()
+
     def _post(self, shards: list) -> _Dispatched:
         """Post the exchange of the two seam halos of every channel row
         (stacked over the rows) with ranks r - 1 and r + 1."""
@@ -163,8 +175,9 @@ class MultiHostDecoder:
             ops += [dist.P2POp(dist.isend, edge, rank - 1),
                     dist.P2POp(dist.irecv, left, rank - 1)]
             sent.append(edge)
-        return _Dispatched(shards, dist.batch_isend_irecv(ops), left, right,
-                           sent)
+        with self._on_comm_device():
+            works = dist.batch_isend_irecv(ops)
+        return _Dispatched(shards, works, left, right, sent)
 
     def dispatch(self, y_local) -> _Dispatched:
         """Place this process's slice on its shards and post the halo
@@ -191,9 +204,15 @@ class MultiHostDecoder:
 
     def fetch(self, out: _Dispatched) -> list[dict]:
         """Finish a dispatch(): wait for its halos, decode this process's
-        shards and unpack the candidate rows whose triggers live in them."""
-        for work in out.works:
-            work.wait()
+        shards and unpack the candidate rows whose triggers live in them.
+        Under NCCL the wait orders the staging card's current stream after
+        the receives; halo_exchange's copy_to then records its event on
+        that stream, so a shard on another card of this process reads its
+        halo only once it has arrived."""
+        if out.works:
+            with self._on_comm_device():
+                for work in out.works:
+                    work.wait()
         out.sent.clear()
         c_local = out.shards[0][0].shape[0]
 
@@ -232,7 +251,7 @@ def _worker_main(argv=None) -> int:
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                     help="torch.distributed backend of the halo exchange "
                          "(default: nccl on CUDA devices, gloo on the CPU; "
-                         "nccl needs one card per process)")
+                         "nccl takes no card that another process uses)")
     ap.add_argument("--iq", default=None, help="capture path (shared fs)")
     ap.add_argument("--format", default="cu8",
                     choices=("cu8", "cs16", "cf32", "f32real"),
@@ -646,24 +665,37 @@ def launch_local(num_processes: int, worker_args: list[str],
                  cpu_sets: list[str] | None = None, device="cuda",
                  backend: str | None = None, threads: int = 1):
     """Spawn num_processes workers on this machine, each with
-    local_devices shards on its device, returning each process's stdout.
-    The path between processes is real: they talk through
-    torch.distributed.  device is one torch device name for every worker
-    or a list with one per worker; backend None leaves the choice to the
-    worker (nccl on CUDA devices, gloo on the CPU).  cpu_sets pins worker
-    i to taskset set cpu_sets[i]; CPU workers get `threads` compute
-    threads each, so several jobs can share a machine."""
+    local_devices shards, returning each process's stdout.  The path
+    between processes is real: they talk through torch.distributed.
+    device is one entry for every worker or a list with one per worker;
+    an entry is one torch device name or a comma list of them, over which
+    the worker's shards are laid in turn (its --local-devices).  backend
+    None leaves the choice to the worker (nccl on CUDA devices, gloo on
+    the CPU); nccl takes no card that is in two workers' lists.
+    cpu_sets pins worker i to taskset set cpu_sets[i]; CPU workers get
+    `threads` compute threads each, so several jobs can share a
+    machine."""
     import socket
     import subprocess
     import tempfile
 
-    devices = ([device] * num_processes if isinstance(device, str)
+    entries = ([device] * num_processes if isinstance(device, str)
                else list(device))
-    if len(devices) != num_processes:
-        raise ValueError(f"{len(devices)} devices for {num_processes} workers")
-    if backend == "nccl" and len(set(devices)) < num_processes:
-        raise ValueError("nccl needs one card per worker; workers that share "
-                         "a card exchange their halos over gloo")
+    if len(entries) != num_processes:
+        raise ValueError(f"{len(entries)} devices for {num_processes} workers")
+    devices = [entry.split(",") for entry in entries]
+    if backend == "nccl":
+        # a worker's "cuda" is its first card
+        cards = [{"cuda:0" if d == "cuda" else d for d in mine}
+                 for mine in devices]
+        for i, mine in enumerate(cards):
+            for other in cards[i + 1:]:
+                shared = sorted(mine & other)
+                if shared:
+                    raise ValueError(
+                        f"nccl needs each card in one worker's list, and "
+                        f"{shared[0]} is in two; workers that share a card "
+                        f"exchange their halos over gloo")
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -675,7 +707,8 @@ def launch_local(num_processes: int, worker_args: list[str],
             env = dict(os.environ)
             env["PYTHONPATH"] = os.pathsep.join(
                 p for p in (root, env.get("PYTHONPATH")) if p)
-            if torch.device(devices[pid]).type == "cpu":
+            mine = devices[pid]
+            if torch.device(mine[0]).type == "cpu":
                 env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = str(threads)
             pin = (["taskset", "-c", cpu_sets[pid]] if cpu_sets else [])
             # stdout/stderr go to FILES, not pipes: this launcher joins
@@ -692,8 +725,9 @@ def launch_local(num_processes: int, worker_args: list[str],
                    "--coordinator", f"127.0.0.1:{port}",
                    "--num-processes", str(num_processes),
                    "--process-id", str(pid),
-                   "--device", devices[pid], "--local-devices",
-                   ",".join([devices[pid]] * local_devices)]
+                   "--device", mine[0], "--local-devices",
+                   ",".join(mine[i % len(mine)]
+                            for i in range(local_devices))]
             if backend:
                 cmd += ["--backend", backend]
             procs.append(subprocess.Popen(pin + cmd + worker_args,

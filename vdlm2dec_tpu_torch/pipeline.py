@@ -677,11 +677,14 @@ class PipelinedDecoder:
     """Overlapped dispatch and fetch for the streaming path.
 
     submit() enqueues a block's device program and, on a CUDA device, an
-    asynchronous copy of its packed rows into pinned host memory followed
-    by an event; one fetch thread waits on each event in turn and unpacks,
-    so the host finishes block i while the card runs block i+1.  On the
-    CPU the program runs synchronously in submit().  Results come back in
-    submission order.
+    asynchronous copy of its packed rows into pinned host memory (a buffer
+    of its own, alive until a fetch thread has unpacked it) followed by an
+    event; `workers` fetch threads each take a block, wait on its event
+    and unpack, so the host finishes block i while the card runs block
+    i+1.  Up to `depth` blocks (default workers + 1) wait for a fetch
+    thread; submit() blocks while that many do.  On the CPU the program
+    runs synchronously in submit().  Results come back in submission
+    order, whichever thread fetched them.
 
     Usage:
         pd = PipelinedDecoder(pipe)
@@ -692,20 +695,25 @@ class PipelinedDecoder:
             ...
     """
 
-    def __init__(self, pipe: Pipeline, fmt: str = "cu8", core_start: int = 0,
+    def __init__(self, pipe: Pipeline, depth: int | None = None,
+                 fmt: str = "cu8", workers: int = 1, core_start: int = 0,
                  core_len: int = 0):
         self.pipe = pipe
+        self.workers = max(1, workers)
+        self.depth = depth if depth is not None else self.workers + 1
         self.fmt = fmt
         self.core_start = core_start
         self.core_len = core_len
-        self._q = queue.Queue(maxsize=2)    # one block in flight, one queued
+        self._q = queue.Queue(maxsize=self.depth)
         self._lock = threading.Condition()
         self._results: dict[int, object] = {}
         self._seq_in = 0                   # blocks dispatched
         self._seq_out = 0                  # blocks yielded
-        self._stopping = False             # sentinel posted
-        self._thread = threading.Thread(target=self._fetch_loop, daemon=True)
-        self._thread.start()
+        self._stopping = False             # sentinels posted
+        self._threads = [threading.Thread(target=self._fetch_loop, daemon=True)
+                         for _ in range(self.workers)]
+        for th in self._threads:
+            th.start()
 
     def _fetch_loop(self):
         while True:
@@ -761,19 +769,22 @@ class PipelinedDecoder:
             self._seq_in += 1
         yield from self._emit_ready(wait=False)
 
-    def close(self):
-        """Stop and join the fetch thread; idempotent.  Every exit path
-        must reach this (the streaming generators do it in a finally)."""
+    def _stop(self):
         if not self._stopping:
             self._stopping = True
-            self._q.put(None)
-        self._thread.join(timeout=300)
+            for _ in self._threads:
+                self._q.put(None)
+
+    def close(self):
+        """Stop and join the fetch threads; idempotent.  Every exit path
+        must reach this (the streaming generators do it in a finally)."""
+        self._stop()
+        for th in self._threads:
+            th.join(timeout=300)
 
     def drain(self):
         """Yield the remaining results in order, then close."""
-        if not self._stopping:
-            self._stopping = True
-            self._q.put(None)
+        self._stop()
         yield from self._emit_ready(wait=True)
         self.close()
 

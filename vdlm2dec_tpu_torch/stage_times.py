@@ -40,10 +40,13 @@ program, launch gaps included, and nothing is run twice or cut short:
               5 runs after 2 warm-ups, with the least and the most beside
               it
   delta_ms    the stage alone (the median of each run's difference)
-  kernels, copies, kernel_ms   from one more run, untimed, in which
+  kernels, copies, kernel_ms   from more runs, untimed, in which
               torch.profiler traces each stage by itself (the stream is
               drained at every boundary): kernel launches, memory copies
-              and fills, and the sum of the kernels' own durations
+              and fills, and the sum of the kernels' own durations, from
+              the run whose trace of the stage holds the most kernels
+              (PROFILED_RUNS of them: a trace can come back with records
+              missing, never with records added)
 
 The first line is the card's name and power limit.  Exits 2 without a CUDA
 card.
@@ -146,6 +149,9 @@ def stage_events(program, runs: int = 5, warm: int = 2) -> list[dict]:
     return out
 
 
+PROFILED_RUNS = 3
+
+
 def stage_kernels(program) -> dict:
     """One untimed run with torch.profiler tracing each stage by itself:
     stage -> kernels launched, copies and fills, and the kernels' summed
@@ -198,7 +204,9 @@ def stage_table(pipe: Pipeline, raw: np.ndarray,
     program, _seg, n = block_program(pipe, raw, block_seconds)
     with torch.cuda.device(pipe.device):
         timed = stage_events(program)
-        counted = stage_kernels(program)
+        runs = [stage_kernels(program) for _ in range(PROFILED_RUNS)]
+    counted = {stage: max((run[stage] for run in runs),
+                          key=lambda c: c["kernels"]) for stage in STAGES}
     rows = []
     prev = None
     for stage in STAGES:
