@@ -127,8 +127,7 @@ Phases, each printed as one JSON line with the card's name and power limit:
   bench_quick  the bench program (vdlm2dec_tpu_torch.bench) in-process at
              its 8-channel sizes: the primary leg (4 s blocks through
              PipelinedDecoder, three passes of six), its device leg (the
-             program alone on a staged block, CUDA events, with the float32
-             matmul rate, the HBM read rate and the front's share) and the
+             program alone on a staged block, CUDA events) and the
              paced latency leg at 0.25 s blocks: full recall, no overflow,
              at least three passes each, K1 once per block
   pipelined_workers  the primary leg with two fetch threads
@@ -1288,9 +1287,6 @@ def bench_quick_phase(card, synth):
           and dev["candidates_overflow"] == 0
           and dev["blocks_timed"] == outer * inner,
           f"bench_quick/device_8ch: {dev}")
-    check(0 < dev["channelizer_share_of_matmul_peak"] < 1
-          and dev["matmul_peak_gflops_f32"] > 0 and dev["hbm_read_gbps"] > 0,
-          f"bench_quick/device_8ch: roofline probes {dev}")
     await_capture(synth, "bench_latency")
     lat_blocks = int(LATENCY_SECONDS / 0.25)
     lat, counted = counted_bench_leg(

@@ -12,8 +12,7 @@ same stimulus (stimulus.make_capture: impaired bursts, per-burst CFO,
   primary        8 channels at 2 Msps through PipelinedDecoder: wall Msps
                  with the host-to-device copy of every block in the loop
   device_8ch     the device program alone on a block staged on the card
-                 once (CUDA events), with the float32 matmul peak, the HBM
-                 read rate and the channelizer's achieved operations
+                 once (CUDA events)
   scale_band_760ch, device_band_760ch
                  the whole VDL band: 760 channels at 25 kHz from a 20 Msps
                  capture, filterbank channelizer, streamed in --band-core
@@ -57,12 +56,11 @@ import numpy as np
 import torch
 
 from . import stimulus
-from ._tables import RAW_FMT, PipelineConfig, packed_stats
-from .constants import STEPRATE
+from ._tables import PipelineConfig, packed_stats
 from .kernel_times import card_string
 from .metrics import PipelineMetrics
-from .pipeline import (Pipeline, PipelinedDecoder, _to_device, channelize_raw,
-                       dispatch_fused, wideband_raw_decode)
+from .pipeline import (Pipeline, PipelinedDecoder, _to_device, dispatch_fused,
+                       wideband_raw_decode)
 from .stage_times import stage_table
 
 PASSES = 3                       # timed passes a leg, each reported
@@ -349,14 +347,13 @@ def _need_cuda(pipe: Pipeline, what: str) -> None:
 
 def run_device_config(channels: int, seconds: float, outer: int, inner: int,
                       max_symbols: int, max_candidates: int | None,
-                      pallas: bool, device="cuda", mfu: bool = True,
+                      pallas: bool, device="cuda",
                       probe_seconds: float | None = None, **leg) -> dict:
     """The device program alone: the raw block staged on the card ONCE,
     then `outer` passes (each reported) of `inner` whole decodes between
     two CUDA events; no copy and no host finishing in the timed region.
-    probe_seconds cuts the capture to its first part.  mfu adds the
-    roofline probes of _mfu_probes.  Raises if the block's candidates
-    overflow the decode slots."""
+    probe_seconds cuts the capture to its first part.  Raises if the
+    block's candidates overflow the decode slots."""
     pipe, raw, _truth = leg_pipeline(channels, seconds, max_symbols,
                                      max_candidates, pallas, device,
                                      block_seconds=probe_seconds, **leg)
@@ -406,84 +403,6 @@ def run_device_config(channels: int, seconds: float, outer: int, inner: int,
           f"{dev_msps:.1f} Msps device program (median; passes "
           f"{[round(m, 1) for m in msps_passes]}) = {chan_rt:.0f} "
           f"channel-realtime equivalents [{card}]", file=sys.stderr)
-    if mfu:
-        out.update(_mfu_probes(pipe, raw_dev))
-    return out
-
-
-def _mfu_probes(pipe: Pipeline, raw_dev: torch.Tensor) -> dict:
-    """Roofline context beside a device leg, all CUDA-event times: the
-    float32 matmul rate with TF32 off (as the decoder multiplies), the
-    device-memory read rate, and the channelizer front alone
-    (channelize_raw on the staged block) with the operations of the
-    implementation in use.  The share is a per-layer figure of the front,
-    not a share of the whole step."""
-    _need_cuda(pipe, "the roofline probe")
-    dev = pipe.device
-    ch = pipe.channelizer
-    reps, n_pass = 8, 3
-
-    def rate(fn, work) -> float:
-        fn()                                         # warm-up
-        return _median([work * reps / (_event_ms(
-            lambda: [fn() for _ in range(reps)], dev) / 1e3)
-            for _ in range(n_pass)])
-
-    k = 4096
-    gen = torch.Generator(device=dev).manual_seed(0)
-    a = torch.randn((k, k), generator=gen, device=dev)
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError("TF32 is on: the float32 peak would not be the "
-                           "decoder's")
-    matmul_flops = rate(lambda: a @ a, 2 * k**3)
-    del a
-    big = torch.ones((256, 1 << 20), device=dev)     # 1 GiB
-    hbm_read = rate(big.sum, big.numel() * 4)
-    del big
-
-    def front():
-        return channelize_raw(raw_dev, ch, "cu8", pipe.cfg.use_pallas)
-
-    front()
-    ch_dt = _median([_event_ms(lambda: [front() for _ in range(reps)], dev)
-                     for _ in range(n_pass)]) / reps / 1e3
-    c = len(ch.f_offsets)
-    p_in, p_out = ch.p_in, ch.p_out
-    t = raw_dev.numel() // RAW_FMT["cu8"][0]
-    nb = t // p_in
-    # the operations of the implementation in use (dft and pfb do the same
-    # products in far fewer multiply-adds than the dense form).  Residue
-    # contraction of both residue implementations: 2 planes x 2*p_in*84
-    # flops a period
-    z_f = 4 * p_in * p_out * nb
-    if ch.impl == "dft":
-        achieved_f = z_f + 8 * c * (ch.fs // STEPRATE) * nb * p_out
-    elif ch.impl == "pfb":
-        fa, fb = ch.pfb_dfa.shape[0], ch.pfb_dfb.shape[0]
-        achieved_f = z_f + (8 * fa * (fa + fb) * fb
-                            + 6 * fa * fb) * nb * p_out
-    else:
-        # mix 12 flops/(chan, sample) + aggregate matmul 4*P_out each
-        achieved_f = c * t * (12 + 4 * p_out)
-    achieved = achieved_f / ch_dt
-    # what the dense mix + dump formulation would need for the same output,
-    # per second: the comparator across implementations
-    dense_equiv = c * t * (12 + 4 * p_out) / ch_dt
-    out = {
-        "matmul_peak_gflops_f32": round(matmul_flops / 1e9, 1),
-        "hbm_read_gbps": round(hbm_read / 1e9, 1),
-        "channelize_ms": round(ch_dt * 1e3, 4),
-        "channelizer_impl": "pallas" if pipe.cfg.use_pallas else ch.impl,
-        "channelizer_gflops": round(achieved / 1e9, 1),
-        "channelizer_dense_equiv_gflops": round(dense_equiv / 1e9, 1),
-        "channelizer_share_of_matmul_peak": round(achieved / matmul_flops, 4),
-    }
-    print(f"# [device {c}ch] float32 matmul {out['matmul_peak_gflops_f32']} "
-          f"Gflop/s (TF32 off), HBM read {out['hbm_read_gbps']} GB/s, "
-          f"channelize {out['channelize_ms']} ms = "
-          f"{out['channelizer_gflops']} Gflop/s (share of the matmul rate "
-          f"{out['channelizer_share_of_matmul_peak']}) "
-          f"[{device_card(dev)}]", file=sys.stderr)
     return out
 
 
@@ -677,7 +596,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip the whole-band config")
     ap.add_argument("--no-device", dest="device_legs", action="store_false",
                     help="skip the device-program legs (staged input, CUDA "
-                         "events, roofline probes)")
+                         "events)")
     ap.set_defaults(device_legs=True)
     ap.add_argument("--band-budget-s", type=float, default=1100.0,
                     help="start the whole-band config only if wall time is "
@@ -854,12 +773,11 @@ def main(argv=None) -> int:
 
     _leg("primary", primary, "recall", "msps_passes")
     _leg("dev8", extra.get("device_8ch"), "device_msps",
-         "device_msps_passes", "channelizer_share_of_matmul_peak",
-         "matmul_peak_gflops_f32", "hbm_read_gbps")
+         "device_msps_passes")
     _leg("band", extra.get("scale_band_760ch"), "msps",
          "channel_realtime_equivalents", "recall")
     _leg("devband", extra.get("device_band_760ch"), "device_msps",
-         "device_msps_passes", "channelizer_share_of_matmul_peak")
+         "device_msps_passes")
     _leg("kchan", extra.get("scale_2000ch"), "msps",
          "channel_realtime_equivalents", "recall")
     _leg("fast", extra.get("fast_8ch_bf16_fused"), "msps", "recall")

@@ -48,6 +48,7 @@ from .golden.codec import Unstuffer, frame_crc_ok
 from .host.native import deframe_block_native
 from .io.live import stream_blocks, stream_raw_blocks
 from .io.sdr import choose_fc
+from .metrics import timed
 from .ops.assembly import assemble_blocks
 from .ops.channelizer import Channelizer, set_f32_matmul
 from .ops.demod import (
@@ -222,12 +223,15 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def dispatch_fused(pipe: "Pipeline", raw: np.ndarray, fmt: str,
-                   core_start: int, core_len: int) -> torch.Tensor:
+                   core_start: int, core_len: int,
+                   block: int | None = None) -> torch.Tensor:
     """Enqueue one raw block (shared by the synchronous path and
     PipelinedDecoder): trim to whole periods (to 32-period tiles under
     use_pallas, as the JAX package does), run the device program, which
     advances the period cursor.  Returns the packed rows on the device.
-    The fused program is boxcar-only, as in the JAX package."""
+    The fused program is boxcar-only, as in the JAX package.  block (the
+    block's SpanLog number, while pipe.spans is on) records the upload
+    and each stage's enqueue as children of block.dispatch."""
     ch = pipe.channelizer
     cfg = pipe.cfg
     if cfg.filter_mode != "boxcar":
@@ -236,10 +240,14 @@ def dispatch_fused(pipe: "Pipeline", raw: np.ndarray, fmt: str,
     per, _pad = RAW_FMT[fmt]
     t = len(raw) // per
     t -= t % (ch.p_in * (32 if cfg.use_pallas else 1))
+    spans = None if block is None else pipe.spans
+    with timed(spans, "block.upload", block, "block.dispatch"):
+        raw_dev = _to_device(raw[: per * t], pipe.device)
     return wideband_raw_decode(
-        _to_device(raw[: per * t], pipe.device), ch, fmt, cfg.use_pallas,
+        raw_dev, ch, fmt, cfg.use_pallas,
         cfg.max_candidates, cfg.max_symbols, pipe._max_out(), core_start,
-        core_len, sync_impl=cfg.sync_impl)
+        core_len, sync_impl=cfg.sync_impl,
+        mark=None if spans is None else spans.marker(block, "block.dispatch"))
 
 
 class Pipeline:
@@ -255,6 +263,7 @@ class Pipeline:
         self.cfg = cfg
         self.device = torch.device(device)
         self.metrics = None              # optional PipelineMetrics sink
+        self.spans = None                # optional metrics.SpanLog
         self._overflow_warned = False
         self._metrics_lock = threading.Lock()
         self.sdrclk = cfg.resolved_sdrclk()
@@ -423,16 +432,21 @@ class Pipeline:
                     out[s_lo - start: s_hi - start] = x[s_lo:s_hi]
                 return out
 
+        spans = self.spans
         for i in range(start_block, n_core):
+            block = None if spans is None else spans.new_block()
             lo_p = i * core_p - lmarg_p
             seg = read(lo_p * p_in, (lmarg_p + core_p + rmarg_p) * p_in)
             y = ch.channelize(seg, period0=lo_p)
-            cands = self._decode_block(y, lmarg_dec, core_dec)
+            with timed(spans, "block.dispatch", block):
+                cands = self._decode_block(y, lmarg_dec, core_dec)
             if self.metrics is not None:
                 self.metrics.decimated_samples += c * max(
                     0, min(core_dec, total_dec - i * core_dec))
-            yield self._finish(cands, t_offset=i * core_dec,
-                               prev_end=prev_end)
+            with timed(spans, "block.finish", block):
+                bursts = self._finish(cands, t_offset=i * core_dec,
+                                      prev_end=prev_end)
+            yield bursts
 
     def stream_wideband_u8(self, raw: np.ndarray, block_seconds: float = 2.0,
                            start_block: int = 0,
@@ -445,7 +459,9 @@ class Pipeline:
         LO mode): the device program is then block-position independent.
         start_block and prev_end resume as in stream_wideband (pass the
         checkpointed prev_end to restore cross-block burst suppression).
-        Yields lists of DecodedBurst per block."""
+        Yields lists of DecodedBurst per block.  While self.spans is on,
+        each block records block.segment, the spans of
+        PipelinedDecoder.submit and its fetch, and block.finish."""
         if not self.cfg.lo_wrap:
             raise ValueError("fused streaming requires lo_wrap=True")
         ch = self.channelizer
@@ -465,7 +481,8 @@ class Pipeline:
         n_chan = len(self.f_offsets)
         if prev_end is None:
             prev_end = {}               # per channel: end of the last burst
-        pending: list[int] = []                        # t_off FIFO
+        pending: list[tuple] = []                # (t_off, block) FIFO
+        spans = self.spans
 
         def seg_bytes(i):
             lo = (i * core_p - lmarg_p) * p_in * per
@@ -476,22 +493,26 @@ class Pipeline:
                 seg[s_lo - lo: s_hi - lo] = raw[s_lo:s_hi]
             return seg
 
-        def finish(cands, t_off):
+        def finish(cands, t_off, block):
             if self.metrics is not None:
                 i = t_off // core_dec
                 self.metrics.decimated_samples += n_chan * max(
                     0, min(core_dec, total_dec - i * core_dec))
-            return self._finish(cands, t_offset=t_off, prev_end=prev_end)
+            with timed(spans, "block.finish", block):
+                return self._finish(cands, t_offset=t_off, prev_end=prev_end)
 
         pd = PipelinedDecoder(self, fmt=fmt, core_start=lmarg_dec,
                               core_len=core_dec)
         try:
             for i in range(start_block, n_core):
-                pending.append(i * core_dec)
-                for cands in pd.submit(seg_bytes(i)):
-                    yield finish(cands, pending.pop(0))
+                block = None if spans is None else spans.new_block()
+                with timed(spans, "block.segment", block):
+                    seg = seg_bytes(i)
+                pending.append((i * core_dec, block))
+                for cands in pd.submit(seg, block):
+                    yield finish(cands, *pending.pop(0))
             for cands in pd.drain():
-                yield finish(cands, pending.pop(0))
+                yield finish(cands, *pending.pop(0))
         finally:
             pd.close()          # even when the generator is abandoned
 
@@ -521,21 +542,26 @@ class Pipeline:
         tail = torch.zeros((c, 0, 2), device=self.device)
         base = 0                       # global index of tail[:, 0]
         prev_end = {ci: -1 for ci in range(c)}
+        spans = self.spans
+
+        def decode(seg, base):
+            block = None if spans is None else spans.new_block()
+            with timed(spans, "block.dispatch", block):
+                cands = self._decode_block(seg, lmargin, core)
+            with timed(spans, "block.finish", block):
+                return self._finish(cands, t_offset=base + lmargin,
+                                    prev_end=prev_end)
+
         for x in stream_blocks(source, fmt, raw_per_block):
             buf = torch.cat([tail, ch.channelize(x[:raw_per_block])], dim=1)
             while buf.shape[1] >= span:
-                cands = self._decode_block(buf[:, :span], lmargin, core)
-                yield self._finish(cands, t_offset=base + lmargin,
-                                   prev_end=prev_end)
+                yield decode(buf[:, :span], base)
                 buf = buf[:, core:]
                 base += core
             tail = buf
         # EOF: zero-pad what is left past the left margin to one segment
         if tail.shape[1] > lmargin:
-            seg = F.pad(tail, (0, 0, 0, span - tail.shape[1]))
-            cands = self._decode_block(seg, lmargin, core)
-            yield self._finish(cands, t_offset=base + lmargin,
-                               prev_end=prev_end)
+            yield decode(F.pad(tail, (0, 0, 0, span - tail.shape[1])), base)
 
     def _stream_live_fused(self, source, fmt: str, block_seconds: float):
         """Live decode through the fused device program: a rolling raw
@@ -562,15 +588,21 @@ class Pipeline:
         blocks_fed = 0
         real_items = [0]                     # items actually read
         prev_end: dict[int, int] = {}
-        pending: list[int] = []
+        pending: list[tuple] = []            # (t_off, block) FIFO
+        spans = self.spans
+        # the next block's SpanLog number, taken at its first read: the
+        # reads a block waits for (its own core and the next one, which
+        # holds its right margin) come before its segment
+        upcoming = None
 
-        def finish(cands, t_off):
+        def finish(cands, t_off, block):
             if self.metrics is not None:
                 total_dec = (real_items[0] // items_p) * p_out
                 i = t_off // core_dec
                 self.metrics.decimated_samples += len(self.f_offsets) * max(
                     0, min(core_dec, total_dec - i * core_dec))
-            return self._finish(cands, t_offset=t_off, prev_end=prev_end)
+            with timed(spans, "block.finish", block):
+                return self._finish(cands, t_offset=t_off, prev_end=prev_end)
 
         def ready_segments():
             nonlocal win, win_base, next_block
@@ -586,30 +618,51 @@ class Pipeline:
                     win = win[keep_from - win_base:]
                     win_base = keep_from
 
+        def dispatch_ready(t_seg):
+            # block.segment: from t_seg (the read's return, or the previous
+            # submit's) through the window's concatenate and slice
+            nonlocal upcoming
+            for seg in ready_segments():
+                block, upcoming = upcoming, None
+                if spans is not None:
+                    if block is None:
+                        block = spans.new_block()
+                    spans.add("block.segment", block, t_seg,
+                              time.monotonic_ns())
+                pending.append((next_block * core_dec, block))
+                for cands in pd.submit(seg, block):
+                    yield finish(cands, *pending.pop(0))
+                t_seg = time.monotonic_ns()
+
         pd = PipelinedDecoder(self, fmt=fmt, core_start=lmarg_dec,
                               core_len=core_dec)
+        reads = stream_raw_blocks(source, fmt, core_p * p_in,
+                                  counter=real_items)
         try:
-            for raw in stream_raw_blocks(source, fmt, core_p * p_in,
-                                         counter=real_items):
+            while True:
+                if spans is not None and upcoming is None:
+                    upcoming = spans.new_block()
+                t_read = time.monotonic_ns()
+                raw = next(reads, None)
+                if raw is None:
+                    break
+                t_seg = time.monotonic_ns()
+                if spans is not None:
+                    spans.add("block.read", upcoming, t_read, t_seg)
                 win = np.concatenate([win, raw])
                 blocks_fed += 1
-                for seg in ready_segments():
-                    pending.append(next_block * core_dec)
-                    for cands in pd.submit(seg):
-                        yield finish(cands, pending.pop(0))
+                yield from dispatch_ready(t_seg)
             # EOF: pad the right margin so every fed block decodes
             if next_block < blocks_fed:
+                t_seg = time.monotonic_ns()
                 need = ((blocks_fed * core_p + rmarg_p) * items_p
                         - (win_base + len(win)))
                 if need > 0:
                     win = np.concatenate(
                         [win, np.full(need, pad_val, dtype=dtype)])
-                for seg in ready_segments():
-                    pending.append(next_block * core_dec)
-                    for cands in pd.submit(seg):
-                        yield finish(cands, pending.pop(0))
+                yield from dispatch_ready(t_seg)
             for cands in pd.drain():
-                yield finish(cands, pending.pop(0))
+                yield finish(cands, *pending.pop(0))
         finally:
             pd.close()          # even when the generator is abandoned
 
@@ -678,13 +731,19 @@ class PipelinedDecoder:
 
     submit() enqueues a block's device program and, on a CUDA device, an
     asynchronous copy of its packed rows into pinned host memory (a buffer
-    of its own, alive until a fetch thread has unpacked it) followed by an
-    event; `workers` fetch threads each take a block, wait on its event
-    and unpack, so the host finishes block i while the card runs block
-    i+1.  Up to `depth` blocks (default workers + 1) wait for a fetch
-    thread; submit() blocks while that many do.  On the CPU the program
-    runs synchronously in submit().  Results come back in submission
-    order, whichever thread fetched them.
+    of its own, alive until a fetch thread has unpacked it) between two
+    timing events; `workers` fetch threads each take a block, wait on its
+    last event and unpack, so the host finishes block i while the card
+    runs block i+1.  Up to `depth` blocks (default workers + 1) wait for
+    a fetch thread; submit() blocks while that many do.  On the CPU the
+    program runs synchronously in submit().  Results come back in
+    submission order, whichever thread fetched them.
+
+    Spans (while pipe.spans is on and submit() is given the block's
+    number): block.dispatch (with block.upload and the stage.* spans of
+    dispatch_fused inside), block.queue (the wait for a free fetch slot),
+    and on the fetch thread block.unpack and block.ready (zero length: the
+    result is stored for the consumer).
 
     Usage:
         pd = PipelinedDecoder(pipe)
@@ -720,18 +779,26 @@ class PipelinedDecoder:
             item = self._q.get()
             if item is None:
                 return
-            seq, host, event, t_start = item
+            seq, host, events, t_start, block = item
+            spans = None if block is None else self.pipe.spans
             try:
-                if event is not None:
-                    event.synchronize()
-                buf = host.numpy()
-                self.pipe._observe_packed(buf, time.perf_counter() - t_start)
-                r = unpack_results(buf)
+                if events is not None:
+                    events[1].synchronize()
+                with timed(spans, "block.unpack", block):
+                    buf = host.numpy()
+                    device_s = (events[0].elapsed_time(events[1]) / 1e3
+                                if events is not None
+                                else time.perf_counter() - t_start)
+                    self.pipe._observe_packed(buf, device_s)
+                    r = unpack_results(buf)
             except Exception as e:          # surfaced to the consumer
                 r = e
             with self._lock:
                 self._results[seq] = r
+                t_ready = time.monotonic_ns()
                 self._lock.notify_all()
+            if spans is not None:
+                spans.add("block.ready", block, t_ready, t_ready)
 
     def _emit_ready(self, wait: bool = False):
         while True:
@@ -748,23 +815,32 @@ class PipelinedDecoder:
                 raise r
             yield r
 
-    def submit(self, raw: np.ndarray):
+    def submit(self, raw: np.ndarray, block: int | None = None):
         """Dispatch a block; yields the candidates of blocks already
-        fetched, in submission order."""
+        fetched, in submission order.  block: the block's SpanLog number,
+        for its spans while pipe.spans is on."""
+        spans = None if block is None else self.pipe.spans
         t_start = time.perf_counter()
-        dev = dispatch_fused(self.pipe, raw, self.fmt, self.core_start,
-                             self.core_len)
-        event = None
-        if dev.is_cuda:
-            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-            host.copy_(dev, non_blocking=True)
-            # record on the stream that ran the copy: on cuda:N the
-            # argument-free record() would use the current device's stream
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev.device))
-        else:
-            host = dev
-        self._q.put((self._seq_in, host, event, t_start))
+        events = None
+        with timed(spans, "block.dispatch", block):
+            if self.pipe.device.type == "cuda":
+                # on the stream that runs the program and the copy: on
+                # cuda:N the argument-free record() would use the current
+                # device's stream
+                stream = torch.cuda.current_stream(self.pipe.device)
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record(stream)
+            dev = dispatch_fused(self.pipe, raw, self.fmt, self.core_start,
+                                 self.core_len, block)
+            if events is not None:
+                host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+                host.copy_(dev, non_blocking=True)
+                events[1].record(stream)
+            else:
+                host = dev
+        with timed(spans, "block.queue", block):
+            self._q.put((self._seq_in, host, events, t_start, block))
         with self._lock:
             self._seq_in += 1
         yield from self._emit_ready(wait=False)
