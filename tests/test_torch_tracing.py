@@ -1,7 +1,8 @@
 """The port's block spans (metrics.SpanLog as Pipeline.spans) on the CPU:
 off, they record nothing and change nothing; on, every block of the
 streaming routes has one span of each kind, with one sequence number,
-the stage spans nest in the dispatch in STAGES order, the result is ready
+the live route reads once a block and finishes a block before it reads
+on, the stage spans nest in the dispatch in STAGES order, the result is ready
 before the consumer finishes it, the fetch thread's spans carry its own
 thread id, and the ring drops and counts what it cannot hold."""
 import io
@@ -95,13 +96,17 @@ def test_every_block_has_each_span_once(capture, route):
         extra = set(n) - set(ONCE) - {"block.read"}
         assert not extra
         if route == "live":
-            # a block's reads (its core, and the next core holding its
-            # right margin) come before its segment; at the stream's end
-            # the last block's margin is padding, read by none
+            # one read a block, up to its segment's end, before its
+            # segment; a last block fed only by the margin read before it
+            # is padding and reads nothing
             reads = [r for r in spans[b] if r.name == "block.read"]
             seg = next(r for r in spans[b] if r.name == "block.segment")
-            assert reads or b == dispatched[-1]
+            assert len(reads) == 1 or (not reads and b == dispatched[-1])
             assert all(r.end_ns <= seg.start_ns for r in reads)
+            # the block is finished (and yielded) before the next read
+            nxt = [r for r in spans[b + 1] if r.name == "block.read"]
+            fin = next(r for r in spans[b] if r.name == "block.finish")
+            assert all(fin.start_ns < r.start_ns for r in nxt)
         else:
             assert "block.read" not in n
 
@@ -224,3 +229,22 @@ def test_device_time_on_the_streaming_route(capture):
     snap = pipe.metrics.snapshot()
     assert snap["device_stream_s"] == round(pipe.metrics.device_time_s, 3)
     assert "device_time_s" not in snap
+
+
+@pytest.mark.parametrize("route", ["file", "live"])
+def test_live_result_wait_in_the_snapshot(capture, route):
+    """The live route counts the blocks it hands out and the host time it
+    waits for each one's result before reading on; the file route counts
+    neither."""
+    pipe = _pipe(capture)
+    pipe.metrics = PipelineMetrics()
+    blocks = _run(pipe, capture[0], route)
+    snap = pipe.metrics.snapshot()
+    assert snap["live_result_wait_s"] == round(
+        pipe.metrics.live_result_wait_s, 3)
+    if route == "live":
+        assert snap["live_blocks"] == len(blocks) >= 4
+        assert pipe.metrics.live_result_wait_s > 0
+    else:
+        assert snap["live_blocks"] == 0
+        assert pipe.metrics.live_result_wait_s == 0

@@ -7,7 +7,8 @@ consumes the standard SDR tool pipelines:
     airspy_rx -r /dev/stdout -f 136.8 -a 6000000 ... | vdlm2t ... --iq -
 
 Blocks are sized to the decode pipeline's streaming core; partial tails are
-carried between reads.
+carried between reads.  The fused live route reads through RawReader
+instead, each read sized to the end of the segment it completes.
 """
 from __future__ import annotations
 
@@ -119,3 +120,45 @@ def stream_raw_blocks(source, fmt: str, samples_per_block: int,
 def stream_raw_u8(source, samples_per_block: int) -> Iterator[np.ndarray]:
     """cu8 fast path: yield raw interleaved uint8 blocks (device converts)."""
     yield from stream_raw_blocks(source, "cu8", samples_per_block)
+
+
+class RawReader:
+    """Native-dtype raw items of a stream, in reads whose size the caller
+    picks at each call (the fused live route asks for what its next
+    segment lacks).  read(n) returns n items, or fewer only at the end of
+    the stream, where a trailing partial item is dropped; `eof` is then
+    set.  `nbytes` counts the bytes read and `items` the whole items among
+    them, so callers can tell stream data from padding.  source: "-"
+    (stdin), a path, or a binary file object."""
+
+    def __init__(self, source, fmt: str):
+        self._own = isinstance(source, str) and source != "-"
+        if isinstance(source, str):
+            source = sys.stdin.buffer if source == "-" else open(source, "rb")
+        self._fh = source
+        self.dtype = np.dtype(_RAW_DTYPE[fmt])
+        self.nbytes = 0
+        self.eof = False
+
+    @property
+    def items(self) -> int:
+        return self.nbytes // self.dtype.itemsize
+
+    def read(self, n: int) -> np.ndarray:
+        want = n * self.dtype.itemsize
+        parts, got = [], 0
+        while got < want:
+            chunk = self._fh.read(want - got)
+            if not chunk:
+                self.eof = True
+                break
+            parts.append(chunk)
+            got += len(chunk)
+        self.nbytes += got
+        buf = b"".join(parts)
+        return np.frombuffer(buf, dtype=self.dtype,
+                             count=got // self.dtype.itemsize)
+
+    def close(self) -> None:
+        if self._own:
+            self._fh.close()

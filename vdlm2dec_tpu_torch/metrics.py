@@ -37,6 +37,11 @@ class PipelineMetrics:
     # (CUDA events); on the CPU, where submit() runs the program, the host
     # time from dispatch to fetch; the other routes: dispatch to fetch
     device_time_s: float = 0.0
+    # the fused live route: host seconds spent waiting for a block's own
+    # result after its submit(), before the next read (the pipe goes
+    # unread meanwhile), and the blocks it handed out
+    live_result_wait_s: float = 0.0
+    live_blocks: int = 0
 
     def observe_bursts(self, bursts) -> None:
         for b in bursts:
@@ -67,6 +72,8 @@ class PipelineMetrics:
             "candidates_overflow": self.candidates_overflow,
             "wall_s": round(wall, 3),
             "device_stream_s": round(self.device_time_s, 3),
+            "live_result_wait_s": round(self.live_result_wait_s, 3),
+            "live_blocks": self.live_blocks,
             "samples_per_s": round(self.samples_in / wall, 1),
             "crc_pass_per_burst": round(
                 self.frames_crc_ok / max(self.bursts_attempted, 1), 4

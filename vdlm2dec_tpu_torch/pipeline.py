@@ -46,7 +46,7 @@ from ._tables import (
 from .constants import DEMOD_RATE, RS_K
 from .golden.codec import Unstuffer, frame_crc_ok
 from .host.native import deframe_block_native
-from .io.live import stream_blocks, stream_raw_blocks
+from .io.live import RawReader, stream_blocks
 from .io.sdr import choose_fc
 from .metrics import timed
 from .ops.assembly import assemble_blocks
@@ -566,105 +566,94 @@ class Pipeline:
     def _stream_live_fused(self, source, fmt: str, block_seconds: float):
         """Live decode through the fused device program: a rolling raw
         window in the native dtype feeds the same overlapping segments as
-        stream_wideband_u8, dispatched through PipelinedDecoder.  Memory
-        is bounded by one segment whatever the stream's length; at EOF the
-        right margin is padded with the format's neutral value so every
-        block that was fed decodes, and only the items actually read
-        count towards decimated_samples."""
+        stream_wideband_u8.  Each read asks for what the next segment
+        lacks (the first core and its right margin, then one core a
+        block), so a block is dispatched as soon as its margin is in, and
+        its result is waited for and yielded before the next read
+        (PipelinedDecoder.wait_all; PipelineMetrics.live_result_wait_s
+        and live_blocks count that wait).  Memory is bounded by one
+        segment whatever the stream's length; at EOF the right margin is
+        padded with the format's neutral value so every block that was fed
+        decodes, and only the items actually read count towards
+        decimated_samples.  While self.spans is on, each block records
+        block.read (the wait for its segment's end), block.segment, the
+        spans of PipelinedDecoder.submit and its fetch, and block.finish."""
         ch = self.channelizer
         per, pad_val = RAW_FMT[fmt]
         p_in, p_out = ch.p_in, ch.p_out
-        lmarg_p, rmarg_p, core_p, total_p = stream_geometry(
+        lmarg_p, _rmarg_p, core_p, total_p = stream_geometry(
             p_in, p_out, self.cfg.fs, self.cfg.max_symbols, block_seconds,
             align=32 if self.cfg.use_pallas else 1)
         lmarg_dec, core_dec = lmarg_p * p_out, core_p * p_out
         items_p = p_in * per                 # raw array items per period
-        dtype = {"cu8": np.uint8, "cs16": np.int16}.get(fmt, np.float32)
+        reader = RawReader(source, fmt)
+        # a block is fed once a byte of its core has been read
+        core_bytes = core_p * items_p * reader.dtype.itemsize
 
         # rolling window: starts with the zero-history left margin
-        win = np.full(lmarg_p * items_p, pad_val, dtype=dtype)
+        win = np.full(lmarg_p * items_p, pad_val, dtype=reader.dtype)
         win_base = -lmarg_p * items_p        # absolute item index of win[0]
-        next_block = 0
-        blocks_fed = 0
-        real_items = [0]                     # items actually read
         prev_end: dict[int, int] = {}
-        pending: list[tuple] = []            # (t_off, block) FIFO
-        spans = self.spans
-        # the next block's SpanLog number, taken at its first read: the
-        # reads a block waits for (its own core and the next one, which
-        # holds its right margin) come before its segment
-        upcoming = None
+        spans, metrics = self.spans, self.metrics
 
-        def finish(cands, t_off, block):
-            if self.metrics is not None:
-                total_dec = (real_items[0] // items_p) * p_out
-                i = t_off // core_dec
-                self.metrics.decimated_samples += len(self.f_offsets) * max(
+        def finish(cands, i, block):
+            if metrics is not None:
+                total_dec = (reader.items // items_p) * p_out
+                metrics.decimated_samples += len(self.f_offsets) * max(
                     0, min(core_dec, total_dec - i * core_dec))
             with timed(spans, "block.finish", block):
-                return self._finish(cands, t_offset=t_off, prev_end=prev_end)
-
-        def ready_segments():
-            nonlocal win, win_base, next_block
-            while True:
-                seg_lo = (next_block * core_p - lmarg_p) * items_p
-                seg_hi = seg_lo + total_p * items_p
-                if seg_hi > win_base + len(win):
-                    return
-                yield win[seg_lo - win_base: seg_hi - win_base]
-                next_block += 1
-                keep_from = (next_block * core_p - lmarg_p) * items_p
-                if keep_from > win_base:
-                    win = win[keep_from - win_base:]
-                    win_base = keep_from
-
-        def dispatch_ready(t_seg):
-            # block.segment: from t_seg (the read's return, or the previous
-            # submit's) through the window's concatenate and slice
-            nonlocal upcoming
-            for seg in ready_segments():
-                block, upcoming = upcoming, None
-                if spans is not None:
-                    if block is None:
-                        block = spans.new_block()
-                    spans.add("block.segment", block, t_seg,
-                              time.monotonic_ns())
-                pending.append((next_block * core_dec, block))
-                for cands in pd.submit(seg, block):
-                    yield finish(cands, *pending.pop(0))
-                t_seg = time.monotonic_ns()
+                return self._finish(cands, t_offset=i * core_dec,
+                                    prev_end=prev_end)
 
         pd = PipelinedDecoder(self, fmt=fmt, core_start=lmarg_dec,
                               core_len=core_dec)
-        reads = stream_raw_blocks(source, fmt, core_p * p_in,
-                                  counter=real_items)
         try:
+            i = 0
             while True:
-                if spans is not None and upcoming is None:
-                    upcoming = spans.new_block()
-                t_read = time.monotonic_ns()
-                raw = next(reads, None)
-                if raw is None:
-                    break
+                seg_lo = (i * core_p - lmarg_p) * items_p
+                seg_hi = seg_lo + total_p * items_p
+                block = None
                 t_seg = time.monotonic_ns()
+                if not reader.eof:
+                    if spans is not None:
+                        block = spans.new_block()
+                    t_read = time.monotonic_ns()
+                    raw = reader.read(seg_hi - (win_base + len(win)))
+                    t_seg = time.monotonic_ns()
+                    if spans is not None:
+                        spans.add("block.read", block, t_read, t_seg)
+                    win = np.concatenate([win, raw])
+                if reader.eof:
+                    # EOF: pad the right margin so every fed block decodes
+                    if i * core_bytes >= reader.nbytes:
+                        break
+                    need = seg_hi - (win_base + len(win))
+                    if need > 0:
+                        win = np.concatenate(
+                            [win, np.full(need, pad_val, dtype=reader.dtype)])
+                seg = win[seg_lo - win_base: seg_hi - win_base]
                 if spans is not None:
-                    spans.add("block.read", upcoming, t_read, t_seg)
-                win = np.concatenate([win, raw])
-                blocks_fed += 1
-                yield from dispatch_ready(t_seg)
-            # EOF: pad the right margin so every fed block decodes
-            if next_block < blocks_fed:
-                t_seg = time.monotonic_ns()
-                need = ((blocks_fed * core_p + rmarg_p) * items_p
-                        - (win_base + len(win)))
-                if need > 0:
-                    win = np.concatenate(
-                        [win, np.full(need, pad_val, dtype=dtype)])
-                yield from dispatch_ready(t_seg)
-            for cands in pd.drain():
-                yield finish(cands, *pending.pop(0))
+                    if block is None:
+                        block = spans.new_block()
+                    # from the read's return through the window's
+                    # concatenate and slice
+                    spans.add("block.segment", block, t_seg,
+                              time.monotonic_ns())
+                done = list(pd.submit(seg, block))
+                t_wait = time.perf_counter()
+                done += pd.wait_all()
+                if metrics is not None:
+                    metrics.live_result_wait_s += time.perf_counter() - t_wait
+                    metrics.live_blocks += 1
+                (cands,) = done
+                yield finish(cands, i, block)
+                i += 1
+                keep_from = (i * core_p - lmarg_p) * items_p
+                win = win[keep_from - win_base:]
+                win_base = keep_from
         finally:
             pd.close()          # even when the generator is abandoned
+            reader.close()
 
     def stream_channels(self, y, core_len: int | None = None):
         """Streaming decode of decimated streams y ((C, T) complex or
@@ -752,6 +741,9 @@ class PipelinedDecoder:
                 ...
         for cands in pd.drain():
             ...
+
+    The live route, which wants each block out at once rather than the
+    overlap, takes every result after each submit() with wait_all().
     """
 
     def __init__(self, pipe: Pipeline, depth: int | None = None,
@@ -857,6 +849,14 @@ class PipelinedDecoder:
         self._stop()
         for th in self._threads:
             th.join(timeout=300)
+
+    def wait_all(self) -> list:
+        """Every result dispatched and not yet handed out, in submission
+        order, waiting for each; the fetch threads stay up.  The live route
+        calls it after each submit(), so that a block comes out before the
+        stream is read on; the file route keeps the overlap of submit() and
+        drain()."""
+        return list(self._emit_ready(wait=True))
 
     def drain(self):
         """Yield the remaining results in order, then close."""
