@@ -1,8 +1,11 @@
 """block_result_wait_ms: from the due time of a block's last core byte on the
 feed to the stream's yield of that block's bursts, mean over the blocks due
-inside the window (ms).  The mean, not the median: the live route yields
-blocks in pairs, so waits alternate between about one and two block
-periods, and a median would follow the parity of the window's block count."""
+inside the window (ms).  The live route hands out each block before it reads
+on, so the blocks' waits lie close together and the mean reads what a
+median would; the mean is taken because every block's wait counts whole in
+it, a block that lags moves it, and the means of the parts of the wait that
+the port's block spans measure (dispatch wait, dispatch to ready, ready
+wait, finish) add up to it, where medians would not."""
 import statistics
 
 

@@ -66,6 +66,7 @@ def main(argv=None) -> int:
     try:
         spec = cells.load_spec(ROOT)
         cell = cells.cell(spec, args.workload)
+        cells.config(spec, cell["config"], root=ROOT)
     except (OSError, KeyError, ValueError) as e:
         print(f"benchmark: {e}", file=sys.stderr)
         return 2

@@ -6,7 +6,7 @@ import statistics
 import numpy as np
 import pytest
 
-from vbench import cells, drive, gen, reference, roofline, trace
+from vbench import cells, drive, gen, protocol, reference, roofline, trace
 
 
 def _rec(**kw):
@@ -90,26 +90,66 @@ def test_device_readers():
     assert _read("host_output_ms_per_block", _rec(blocks=4, output_s=0.2)) == pytest.approx(50.0)
 
 
-def test_sync_fit_reads_each_burst_frequency_offset():
+def _airspy(cfg):
+    """rtl8's plan as the Airspy R2 takes it: f32real at 5 Msps, fc by the
+    port's air.c rule."""
+    from vdlm2dec_tpu_torch.io.sdr import choose_fc_airspy
+
+    cfg.update(format="f32real", fs=5_000_000)
+    cfg["fc_hz"] = choose_fc_airspy(gen.channel_plan(cfg), cfg["fs"])
+    return cfg
+
+
+@pytest.mark.parametrize("fmt", ["cu8", "f32real"])
+def test_sync_fit_reads_each_burst_frequency_offset(fmt):
     """The float64 sync fit, at the trigger sample that ends a burst's sync
     word, reads the offset the generator gave the burst (to a few Hz: the
-    fit sees the pulse's intersymbol interference, as the decoder does)."""
+    fit sees the pulse's intersymbol interference, as the decoder does);
+    f32real channels sit at their offsets from F0 = fc + fs/4."""
     cfg = json.load(open(os.path.join(cells.BENCH_DIR, "configs", "rtl8.json")))
     tr = json.load(open(os.path.join(cells.BENCH_DIR, "traffic", "busy-file.json")))
     cfg["channels"], tr["seconds"] = 2, 1.0
+    if fmt == "f32real":
+        cfg = _airspy(cfg)
     cap = gen.make_capture(cfg, tr, 5, "cpu")
-    assert cap.bursts
+    assert cap.bursts and cap.fmt == fmt
+    f0 = protocol.mix_center_hz(fmt, cap.fs, cap.fc_hz)
     for b in cap.bursts:
-        fit = reference.sync_slope_hz(cap.raw, cap.fs, cap.freqs_hz[b.chan] - cap.fc_hz,
+        fit = reference.sync_slope_hz(cap.raw, cap.fmt, cap.fs, cap.freqs_hz[b.chan] - f0,
                                       np.arange(b.start + 136, b.start + 142))
         assert np.min(np.abs(fit - b.imp[0])) < 10.0
+
+
+def test_f32real_front_is_the_ports_channelizer():
+    """The reference's float64 front over f32real samples (real, mixed
+    relative to F0) against the port's plain dft channelizer under
+    real_input on the same samples: the same 84 kHz samples to float32
+    rounding."""
+    import torch
+
+    from vdlm2dec_tpu_torch import pipeline as pl
+
+    cfg = json.load(open(os.path.join(cells.BENCH_DIR, "configs", "rtl8.json")))
+    tr = json.load(open(os.path.join(cells.BENCH_DIR, "traffic", "busy-file.json")))
+    cfg["channels"], tr["seconds"] = 2, 0.5
+    cap = gen.make_capture(_airspy(cfg), tr, 5, "cpu")
+    ch = pl.Pipeline(drive.pipeline_config(cfg), "cpu").channelizer
+    assert ch.real_input and ch.impl == "dft"
+    x = torch.from_numpy(cap.raw[: len(cap.raw) - len(cap.raw) % ch.p_in])
+    y = ch.channelize(x).numpy()
+    f0 = protocol.mix_center_hz("f32real", cap.fs, cap.fc_hz)
+    for ci, f in enumerate(cap.freqs_hz):
+        ref = reference._decimate(cap.raw, "f32real", cap.fs, f - f0, 0, y.shape[1])
+        got = y[ci, :, 0] + 1j * y[ci, :, 1]
+        assert np.abs(ref).max() > 1e-3
+        assert np.abs(got - ref).max() < 1e-5 * np.abs(ref).max()
 
 
 def test_slope_gaps_sample_and_skip_the_stream_start():
     raw = np.full(2 * 2_000_000, 127, dtype=np.uint8)
     # (channel, t0, offset Hz) rows, flat, as drive.Record.soft keeps them
     soft = [0, 100, 5.0, 0, 1000, 0.0, 0, 2000, 0.0, 1, 3000, 0.25]
-    gaps = reference.slope_gaps(raw, 2_000_000, 136_500_000, [136_600_000, 136_650_000],
+    gaps = reference.slope_gaps(raw, "cu8", 2_000_000, 136_500_000, [136_600_000, 136_650_000],
                                 soft, 2, seed=3)
     # the burst at t0 100 has no history in the stream; two of the rest
     assert len(gaps) == 2 and np.all(np.isfinite(gaps))
@@ -133,16 +173,16 @@ def test_sync_error_is_the_program_s_own_metric():
     x = x[: len(x) - len(x) % pipe.channelizer.p_in]
     err, _fr = sync_scan(pipe.channelizer.channelize(torch.tensor(x)).contiguous(), "stream")
     for ci in range(2):
-        t, e = reference.sync_errors(cap.raw, cap.fs, cap.freqs_hz[ci] - cap.fc_hz, 1001, 40000)
+        t, e = reference.sync_errors(cap.raw, cap.fmt, cap.fs, cap.freqs_hz[ci] - cap.fc_hz, 1001, 40000)
         low = e < 10
         assert low.sum() > 10
         assert np.max(np.abs(err[ci, t].numpy() - e)[low]) < 1e-3
     assert cap.bursts
     for b in cap.bursts:
-        t, e = reference.sync_errors(cap.raw, cap.fs, cap.freqs_hz[b.chan] - cap.fc_hz,
+        t, e = reference.sync_errors(cap.raw, cap.fmt, cap.fs, cap.freqs_hz[b.chan] - cap.fc_hz,
                                      b.start - 20, b.start + 180)
         assert 134 <= t[np.argmin(e)] - b.start <= 140 and e.min() < 0.2
-    assert reference.unsyncable(cap.raw, cap.fs, cap.fc_hz, cap.freqs_hz, cap.bursts) == []
+    assert reference.unsyncable(cap.raw, cap.fmt, cap.fs, cap.fc_hz, cap.freqs_hz, cap.bursts) == []
 
 
 @pytest.mark.parametrize("early, is_owed", [

@@ -3,7 +3,9 @@ file of each kind is taken up through BENCHMARK.json alone."""
 import json
 import os
 
-from vbench import cells
+import pytest
+
+from vbench import cells, drive
 
 
 def test_every_entry_has_its_files():
@@ -57,3 +59,32 @@ def test_new_files_are_taken_up(tiny_root):
     class Rec:
         blocks = 7
     assert cells.reader("blocks_counted", str(bench))(Rec()) == 7.0
+
+
+@pytest.mark.parametrize("name", ["rtl8", "band760"])
+def test_pipeline_config_of_the_cu8_configurations(name):
+    """The PipelineConfig each configuration file stands for, field by field
+    (the CLI's flags named in its "cli"): a cu8 capture, real_input off."""
+    from vdlm2dec_tpu_torch._tables import PipelineConfig
+
+    spec = cells.load_spec()
+    cfg = cells.config(spec, name)
+    want = {
+        "rtl8": PipelineConfig(
+            freqs_hz=[136.6e6 + 50e3 * i for i in range(8)], fs=2_000_000,
+            fc_hz=136.5e6, max_symbols=5449, max_candidates=64, max_out=512,
+            chan_impl="dft", sync_impl="stream", compute="f32"),
+        "band760": PipelineConfig(
+            freqs_hz=[118e6 + 25e3 * i for i in range(760)], fs=20_000_000,
+            fc_hz=127.5e6, max_symbols=696, max_candidates=16, max_out=1696,
+            chan_impl="pfb", sync_impl="stream", compute="f32"),
+    }[name]
+    assert drive.pipeline_config(cfg) == want
+    assert not want.real_input
+
+
+def test_pipeline_config_of_an_f32real_configuration(tiny_root):
+    spec = cells.load_spec(str(tiny_root))
+    cfg = cells.config(spec, "airspy2", root=str(tiny_root))
+    pc = drive.pipeline_config(cfg)
+    assert cfg["format"] == "f32real" and pc.real_input and pc.fs == 5_000_000

@@ -12,6 +12,8 @@ from vbench import cells, harness
 
 torch.set_num_threads(1)
 CELLS = ["rtl8-busy-file", "band760-sparse-file", "rtl8-busy-live"]
+# the f32real stand-in's cells (conftest.STANDINS): the real-input route
+STANDIN_CELLS = ["airspy2-busy-file", "airspy2-busy-live"]
 
 
 def _run(root, cell_name, seconds=3.0, trace=False, control=None, seed=2**31 + 7):
@@ -21,11 +23,12 @@ def _run(root, cell_name, seconds=3.0, trace=False, control=None, seed=2**31 + 7
                             control=control, bench_dir=str(root / "benchmark"))
 
 
-@pytest.mark.parametrize("cell_name", CELLS)
+@pytest.mark.parametrize("cell_name", CELLS + STANDIN_CELLS)
 def test_cell_runs_correct(tiny_root, cell_name):
     r = _run(tiny_root, cell_name, seconds=4.0 if "live" in cell_name else 2.0)
     assert r["correct"], r["info"]["tally"]
     assert r["attempted"] > 0 and r["failed"] == 0
+    assert r["checks"]["missed_wrong_extra"]["value"] == 0
     names = set(r["metrics"])
     if "live" in cell_name:
         assert names == {"frame_latency_p50_ms", "frame_latency_p95_ms", "setup_s"}
@@ -60,7 +63,7 @@ def test_result_line_and_checks_last(tiny_root, capsys):
     assert all(t.startswith("check ") for t in tail)
 
 
-@pytest.mark.parametrize("cell_name", CELLS)
+@pytest.mark.parametrize("cell_name", CELLS + STANDIN_CELLS)
 def test_control_comes_out_not_correct(tiny_root, cell_name):
     """The control: the program's own bfloat16 path, one precision below
     the float32 the configurations state.  It prints every message right
@@ -72,7 +75,7 @@ def test_control_comes_out_not_correct(tiny_root, cell_name):
     assert gap["value"] > gap["limit"]
 
 
-@pytest.mark.parametrize("cell_name", CELLS)
+@pytest.mark.parametrize("cell_name", CELLS + STANDIN_CELLS)
 def test_no_margin_comes_out_not_correct(tiny_root, cell_name):
     """A planted fault: each block's right margin left out."""
     r = _run(tiny_root, cell_name, seconds=4.0 if "live" in cell_name else 3.0,

@@ -9,6 +9,8 @@ import importlib.util
 import json
 import os
 
+from .protocol import capture_format
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_DIR = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH_DIR)
@@ -27,10 +29,16 @@ def cell(spec: dict, name: str) -> dict:
 
 
 def config(spec: dict, name: str, root: str = ROOT) -> dict:
+    """A configuration file, its capture format checked (ValueError)."""
     for c in spec["configs"]:
         if c["name"] == name:
             with open(os.path.join(root, c["file"])) as fh:
-                return json.load(fh)
+                cfg = json.load(fh)
+            try:
+                capture_format(cfg)
+            except ValueError as e:
+                raise ValueError(f"{c['file']}: {e}") from None
+            return cfg
     raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
 

@@ -1,16 +1,19 @@
 """The measured window: the port's served path, driven as its CLI drives it.
 
-File cells: `Pipeline.stream_wideband_u8(raw, block_seconds)` over the
-capture, as cli._file_stream calls it, each yielded block's bursts through
+File cells: `Pipeline.stream_wideband_u8(raw, block_seconds, fmt=...)` over
+the capture, as cli._file_stream calls it, each yielded block's bursts through
 `FrameDecoder.process_burst` under `-J` into an in-memory log, as
 cli._decode does; pass after pass, each a new stream (fresh prev_end) and
 a new FrameDecoder, like a user decoding the recorded file again.  Only
 blocks whose lines were emitted inside the window count.
 
-Live cells: `Pipeline.stream_live(source, "cu8", block_seconds)` on the
+Live cells: `Pipeline.stream_live(source, fmt, block_seconds)` on the
 fused route, where source is the CLI's own pipe reader on the read end of
 an OS pipe that a separate feeder process fills on the capture's sample
-clock (feeder.py).
+clock (feeder.py), at the format's bytes a sample times fs.
+
+The capture format is the configuration's "format" (protocol.RAW_FMT),
+as the CLI's --format gives it.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from . import gen
+from .protocol import RAW_FMT, bytes_per_sample, capture_format
 from .reference import DEMOD_RATE, Judge, tally
 
 STATION = "BENCH"
@@ -102,6 +106,7 @@ def pipeline_config(cfg: dict, control: str | None = None):
     return PipelineConfig(
         freqs_hz=[float(f) for f in gen.channel_plan(cfg)],
         fs=int(cfg["fs"]), fc_hz=float(cfg["fc_hz"]),
+        real_input=capture_format(cfg) == "f32real",
         max_symbols=min(5449, int(cfg["max_rows"]) * 680 + 16),
         max_candidates=int(cfg["max_candidates"]),
         max_out=int(cfg["max_out"]),
@@ -181,7 +186,7 @@ def run_file(pipe, cap: gen.Capture, rec: Record, seconds: float, tracer,
     host = HostAccount()
 
     def one_pass(sink, dec, on_block=None):
-        it = pipe.stream_wideband_u8(cap.raw, block_seconds=block_s)
+        it = pipe.stream_wideband_u8(cap.raw, block_seconds=block_s, fmt=cap.fmt)
         try:
             i = 0
             while True:
@@ -289,13 +294,14 @@ def run_live(pipe, cap: gen.Capture, rec: Record, seconds: float, tracer,
     fs = int(rec.config["fs"])
     core = pipe.core_raw_samples(block_s)
     core_dec = core // pipe.channelizer.p_in * pipe.channelizer.p_out
-    rate = 2.0 * fs                                # cu8 bytes a second
+    bps = bytes_per_sample(cap.fmt)
+    rate = float(bps * fs)                         # the feed's bytes a second
     lead = int(tr["lead_blocks"])
     grace = int(tr["grace_blocks"])
     feed_s = lead * block_s + seconds + grace * block_s + block_s
     total_writes = int(np.ceil(feed_s * rate / FEED_WRITE))
 
-    fd, path = tempfile.mkstemp(suffix=".cu8")
+    fd, path = tempfile.mkstemp(suffix="." + cap.fmt)
     r_fd = w_fd = None
     feeder = None
     try:
@@ -314,9 +320,9 @@ def run_live(pipe, cap: gen.Capture, rec: Record, seconds: float, tracer,
         # memory, warms every shape the feed will use
         warm_sink = LineSink()
         warm_dec = _decoder(warm_sink)
-        nbytes = (lead + 1) * core * 2
-        for bursts in pipe.stream_live(io.BytesIO(cap.raw[:nbytes].tobytes()),
-                                       "cu8", block_s):
+        items = (lead + 1) * core * RAW_FMT[cap.fmt][0]
+        for bursts in pipe.stream_live(io.BytesIO(cap.raw[:items].tobytes()),
+                                       cap.fmt, block_s):
             for b in bursts:
                 warm_dec.process_burst(b)
         tracer.warm()
@@ -341,7 +347,7 @@ def run_live(pipe, cap: gen.Capture, rec: Record, seconds: float, tracer,
         # that straddle it)
         last_block = int((w1 - origin) / block_s) + 1
         src = _TimedReader(_LiveStdin(r_fd), tracer)
-        it = pipe.stream_live(src, "cu8", block_s)
+        it = pipe.stream_live(src, cap.fmt, block_s)
         k = 0
         yields = []
         try:
@@ -403,7 +409,7 @@ def run_live(pipe, cap: gen.Capture, rec: Record, seconds: float, tracer,
     rec.feed["yields_s"] = [round(t - origin, 4) for _k, t in yields]
     # block waits: the due time of a block's last core byte to its yield
     for kb, t_y in yields:
-        due_t = origin + (kb + 1) * core * 2 / rate
+        due_t = origin + (kb + 1) * core * bps / rate
         if w0 <= due_t <= w1:
             rec.block_waits_ms.append(1e3 * (t_y - due_t))
 
@@ -416,7 +422,7 @@ def run_live(pipe, cap: gen.Capture, rec: Record, seconds: float, tracer,
     for rep in range(reps):
         for i, b in enumerate(cap.bursts):
             last_raw = -(-(rep * period_dec + b.end) * fs // DEMOD_RATE)
-            j = (2 * last_raw) // FEED_WRITE
+            j = (bps * last_raw) // FEED_WRITE
             t = origin + (j + 1) * period
             if w0 <= t < w1:
                 due.append((1, i, rep))

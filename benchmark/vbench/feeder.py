@@ -1,6 +1,8 @@
 """Open-loop feeder of the live cell: a process of its own that writes a
 capture into a pipe as rtl_sdr would, in 64 KiB writes on a fixed
-sample-rate schedule that does not slow when the reader slows.
+sample-rate schedule that does not slow when the reader slows.  It knows
+bytes only: the capture's native samples (cu8 bytes, f32real float32) and
+a rate in bytes a second, the format's bytes a sample times fs.
 
     python3 feeder.py CAPTURE FD RATE_BYTES_PER_S TOTAL_WRITES
 

@@ -1,12 +1,13 @@
-"""The benchmark's traffic generator: a seeded wideband cu8 capture of VDL2
-bursts on a channel plan, and the truth of every burst in it.
+"""The benchmark's traffic generator: a seeded wideband capture of VDL2
+bursts on a channel plan, in the configuration's capture format, and the
+truth of every burst in it.
 
 One general generator reads every traffic mix (a file of parameters under
 benchmark/traffic/).  Its arithmetic is that of the port's stimulus,
 modulator and framegen modules, rewritten so that a capture costs seconds:
 burst symbols are made on the host, in a few vectorized steps per burst;
 pulse shaping, the per-burst impairments, upsampling, mixing, noise and
-the cu8 quantisation run in torch on the given device, in fixed-order
+the format's quantisation run in torch on the given device, in fixed-order
 arithmetic (gathers, no atomics), so one seed gives the same bytes.
 
 Work does not depend on the seed: a fixed shape seed in the mix draws each
@@ -14,6 +15,18 @@ channel's list of bursts (kind, text length, gap after it) and the run's
 seed only permutes that list and draws contents, addresses and
 impairments.  Every seed thus carries the same number of bursts of the
 same sizes, in another order.
+
+Formats (protocol.RAW_FMT; the configuration's "format" key):
+  cu8      each channel mixed to f - fc; complex noise; rounded to bytes
+           around rtl_sdr's zero, 127.37, as interleaved uint8
+  f32real  each channel mixed to f - F0, F0 = fc + fs/4 (air.c:182-185);
+           the real part doubled, so that after the receiver's mixer and
+           dump a channel carries the level its cu8 capture would (the
+           other half is the mirror image at the negated offset); real
+           noise; rounded to the Airspy's 12-bit grid, clipped to
+           [-2048, 2047] and scaled by 1/2048, as float32
+Levels and noise are in LSBs of the format's own quantiser, so one mix
+means the same signal-to-quantisation ratio on either format.
 """
 from __future__ import annotations
 
@@ -30,20 +43,24 @@ from .protocol import (
     GF_EXP,
     GF_LOG,
     KEYSTREAM,
+    RAW_FMT,
     RS_GEN_POLY,
     RS_K,
     RS_ROOTS,
     SPS,
     SYNC_PHASES,
     burst_geometry,
+    capture_format,
     crc_update,
     frame_fcs,
     header_encode,
+    mix_center_hz,
     reversebits,
 )
 
 TWO_PI = 2.0 * math.pi
 RTL_DC_OFFSET = 127.37           # rtl_sdr's cu8 zero (the port's io.sdr)
+AIRSPY_FULL_SCALE = 2048         # the Airspy's 12-bit samples as float32 (air.c)
 AIRCRAFT = 1 << 24               # AVLC address types (out.c:437-469)
 GROUND_D = 5 << 24
 ALL_STATIONS = 7 << 24
@@ -96,16 +113,17 @@ class Burst:
 
 @dataclass
 class Capture:
-    raw: np.ndarray              # interleaved cu8 bytes
+    raw: np.ndarray              # the format's native array (protocol.RAW_DTYPE)
     fs: int
     fc_hz: float
     freqs_hz: list
     seconds: float
     bursts: list                 # Burst, in (chan, start) order
+    fmt: str                     # protocol.RAW_FMT's key
 
     @property
     def samples(self) -> int:
-        return len(self.raw) // 2
+        return len(self.raw) // RAW_FMT[self.fmt][0]
 
 
 def channel_plan(cfg: dict) -> list[int]:
@@ -414,8 +432,14 @@ def _upsample_mix(bb: torch.Tensor, fs: int, f_offset: int, wide: torch.Tensor,
 def make_capture(cfg: dict, traffic: dict, seed: int, device) -> Capture:
     """The capture of a (configuration, traffic mix) pair for one seed."""
     device = torch.device(device)
+    fmt = capture_format(cfg)
     fs = int(cfg["fs"])
     fc = int(cfg["fc_hz"])
+    # the mixer's centre, in whole Hz for _upsample_mix's integer phase
+    f0 = mix_center_hz(fmt, fs, fc)
+    if f0 != int(f0):
+        raise ValueError(f"the mixer's centre {f0} Hz is not a whole number of Hz")
+    f0 = int(f0)
     freqs = channel_plan(cfg)
     seconds = float(traffic["seconds"])
     total_wide = int(fs * seconds)
@@ -454,17 +478,27 @@ def make_capture(cfg: dict, traffic: dict, seed: int, device) -> Capture:
             bursts.append(Burst(ci, pos, length, kind, f, imp[-1]))
             pos += length + gap
         bb = _shape_channel(phases, starts, imp, total_bb, device)
-        _upsample_mix(bb, fs, freqs[ci] - fc, wide)
+        _upsample_mix(bb, fs, freqs[ci] - f0, wide)
         del bb
     g = torch.Generator(device=device)
     g.manual_seed(seed % SEED_MOD)
-    raw = torch.empty(total_wide, 2, dtype=torch.uint8, device=device)
+    noise_lsb = float(imp_cfg["noise"])
     chunk = 1 << 24
-    for lo in range(0, total_wide, chunk):
-        w = wide[lo: lo + chunk]
-        noise = torch.randn(len(w), 2, generator=g, device=device) * float(imp_cfg["noise"])
-        x = torch.view_as_real(w) + noise + RTL_DC_OFFSET
-        raw[lo: lo + len(w)] = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+    if fmt == "cu8":
+        raw = torch.empty(total_wide, 2, dtype=torch.uint8, device=device)
+        for lo in range(0, total_wide, chunk):
+            w = wide[lo: lo + chunk]
+            noise = torch.randn(len(w), 2, generator=g, device=device) * noise_lsb
+            x = torch.view_as_real(w) + noise + RTL_DC_OFFSET
+            raw[lo: lo + len(w)] = torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+    else:
+        raw = torch.empty(total_wide, dtype=torch.float32, device=device)
+        for lo in range(0, total_wide, chunk):
+            w = wide[lo: lo + chunk]
+            noise = torch.randn(len(w), generator=g, device=device) * noise_lsb
+            x = torch.round(2.0 * w.real + noise)
+            raw[lo: lo + len(w)] = torch.clamp(
+                x, -AIRSPY_FULL_SCALE, AIRSPY_FULL_SCALE - 1) / AIRSPY_FULL_SCALE
     del wide
     host = raw.reshape(-1).cpu().numpy()
-    return Capture(host, fs, float(fc), [float(f) for f in freqs], seconds, bursts)
+    return Capture(host, fs, float(fc), [float(f) for f in freqs], seconds, bursts, fmt)

@@ -81,17 +81,20 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     # the reference, once the window has closed and the program is freed
+    t_ref = time.monotonic()
     live = tr["mode"] == "live"
     period = int(round(cap.seconds * DEMOD_RATE)) if live else 1 << 40
     judge = Judge(cap.bursts, cap.freqs_hz, drive.STATION, period)
     # bursts that vdlm2dec's sync rule cannot catch are not owed
-    excused = set(unsyncable(cap.raw, cap.fs, cap.fc_hz, cap.freqs_hz, cap.bursts))
+    excused = set(unsyncable(cap.raw, cap.fmt, cap.fs, cap.fc_hz, cap.freqs_hz, cap.bursts))
     due = [d for d in due if d[1] not in excused]
     rec.due_t = {k: v for k, v in rec.due_t.items() if k[0] not in excused}
     rec.tally = tally(judge, [(s, line) for s, _t, line in sink.lines()], due, excused)
     if live:
         rec.latencies_ms = drive.live_latencies(judge, sink, rec)
-    gaps = slope_gaps(cap.raw, cap.fs, cap.fc_hz, cap.freqs_hz, rec.soft, SOFT_SAMPLE, seed)
+    gaps = slope_gaps(cap.raw, cap.fmt, cap.fs, cap.fc_hz, cap.freqs_hz, rec.soft,
+                      SOFT_SAMPLE, seed)
+    reference_s = time.monotonic() - t_ref
 
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
@@ -130,6 +133,7 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float, trace: bool,
                                      "capture": t_capture - t_ready,
                                      "pipeline": t_pipe - t_capture,
                                      "warm_and_lead": t_start + rec.setup_s - t_pipe},
+                   "reference_s": reference_s,
                    "capture_bursts": len(cap.bursts), "feed": rec.feed,
                    "unsyncable": [{"burst": i, "chan": cap.bursts[i].chan,
                                    "start": cap.bursts[i].start} for i in sorted(excused)],

@@ -1,6 +1,7 @@
 """The VDL Mode 2 transmit-side protocol the traffic generator needs: the
 sync word, the Gray map, the (25,20) header code, RS(255,249) over
-GF(2^8), the frame FCS and the scrambler keystream.
+GF(2^8), the frame FCS and the scrambler keystream; and the capture formats
+a configuration may name.
 
 Frozen copies of the port's constants.py and golden/codec.py (those two
 modules are the port's own copies of the reference decoder's tables:
@@ -25,6 +26,40 @@ ROW_DATA_BITS = RS_K * 8    # 1992
 HEADER_BITS = 25
 SCRAMBLER_SEED = 0x4D4B
 MAX_BURST_SYMBOLS = -(-(HEADER_BITS + MAX_ROWS * RS_N * 8) // 3)   # 5449
+
+# ----------------------------------------------------------------------------
+# Capture formats a configuration may name under "format": the raw array's
+# items per sample and the neutral pad value beyond the capture (the port's
+# _tables.RAW_FMT for these formats), and the raw array's dtype.
+#   cu8      rtl_sdr: interleaved unsigned bytes around 127.37 (rtl.c)
+#   f32real  Airspy FLOAT32_REAL: real float32 samples, channels mixed
+#            relative to F0 = Fc + fs/4 (air.c:130-141, 182-185)
+# ----------------------------------------------------------------------------
+RAW_FMT = {
+    "cu8": (2, 127),
+    "f32real": (1, 0.0),
+}
+RAW_DTYPE = {"cu8": np.uint8, "f32real": np.float32}
+
+
+def capture_format(cfg: dict) -> str:
+    """The configuration's capture format, checked: "cu8" or "f32real"."""
+    fmt = cfg.get("format")
+    if fmt not in RAW_FMT:
+        raise ValueError(f"configuration key 'format' is {fmt!r}; "
+                         f"the benchmark takes one of {sorted(RAW_FMT)}")
+    return fmt
+
+
+def bytes_per_sample(fmt: str) -> int:
+    return RAW_FMT[fmt][0] * np.dtype(RAW_DTYPE[fmt]).itemsize
+
+
+def mix_center_hz(fmt: str, fs: int, fc_hz: float) -> float:
+    """The frequency each channel is mixed relative to: Fc, or F0 = Fc + fs/4
+    for the Airspy's real samples (air.c:182-185)."""
+    return fc_hz + fs / 4 if fmt == "f32real" else fc_hz
+
 
 # ----------------------------------------------------------------------------
 # Sync word: 17 absolute D8PSK phases (units of pi/8), d8psk.h:20-26

@@ -14,12 +14,18 @@ burst whose air span, on the line's channel, holds the line's timestamp
 
 `sync_slope_hz` is the soft half of the comparison: the frequency offset
 that the reference's sync fit (d8psk.c:232-333) reads at a burst's
-trigger, worked out again in float64 from the capture's bytes, to be held
+trigger, worked out again in float64 from the capture's samples, to be held
 against the offset the program yielded for that burst (its `ppm`).
+
+`front` is the reference's receiver front in float64, the one place that
+reads a capture's format: cu8 bytes less rtl_sdr's DC offset, or the
+Airspy's real float32 samples with a zero imaginary part (air.c's Cbuff);
+each channel is then mixed relative to Fc, or to F0 = Fc + fs/4 for the
+real samples (protocol.mix_center_hz; air.c:182-185).
 
 `unsyncable` names the bursts that vdlm2dec's own sync rule cannot catch:
 where the sync error, worked out again in float64 from the capture's
-bytes, dips under the threshold and rises again less than one sync window
+samples, dips under the threshold and rises again less than one sync window
 before the burst's true sync point (a trigger on the noise in front of
 the burst, or on its first symbols), the decoder leaves sync search there
 and is blind to the burst's preamble.  Such a burst is not owed; a line
@@ -34,7 +40,7 @@ from collections import defaultdict
 
 import numpy as np
 
-from .protocol import MFLT, SYNC_PHASES
+from .protocol import MFLT, RAW_FMT, SYNC_PHASES, mix_center_hz
 
 DEMOD_RATE = 84_000
 APP = {"name": "vdlm2dec", "ver": "2.3"}
@@ -157,34 +163,46 @@ def tally(judge: Judge, lines, due, excused=()) -> dict:
             "extra": extra, "failures": bad[:10]}
 
 
-def sync_slope_hz(raw: np.ndarray, fs: int, f_offset: float, t0s) -> np.ndarray:
-    """The frequency offset (Hz) of the sync fit at each trigger t0 (84 kHz
-    samples from the stream's start) on the channel at f_offset from the
-    centre, in float64, from the interleaved cu8 bytes (repeated end to end
-    where the stream runs past them, as the live feed repeats them).
+def front(raw: np.ndarray, fmt: str, n: np.ndarray) -> np.ndarray:
+    """Samples n of the stream (the capture repeated end to end, as the
+    live feed repeats it) in float64: cu8 bytes less the DC offset as
+    re + j im; f32real samples widened, a real stream (imaginary part 0)."""
+    n_raw = len(raw) // RAW_FMT[fmt][0]
+    if fmt == "cu8":
+        k = 2 * (n % n_raw)
+        return (raw[k] - DC_OFFSET) + 1j * (raw[k + 1] - DC_OFFSET)
+    return raw[n % n_raw].astype(np.float64)
 
-    The reference's front and fit: bytes less the DC offset, mixed by the
-    wrapped LO table, integrated and dumped 21 / sdrclk (an 84 kHz sample m
-    sums the inputs n with floor(21 n / sdrclk) = m, sdrclk = fs / 4000);
-    branch 0 of the matched filter; the phases of the 17 symbols that end
-    at t0 - 2, less the sync word, unwrapped step by step; the slope of
-    their least-squares line (d8psk.c:353-381, 219-230, 262-290)."""
+
+def _decimate(raw: np.ndarray, fmt: str, fs: int, f_offset: float, m_lo: int,
+              m_hi: int) -> np.ndarray:
+    """84 kHz samples m_lo..m_hi-1 of the channel at f_offset from the
+    mixer's centre, in float64: the front, the wrapped LO table,
+    integrate and dump 21 / sdrclk (an 84 kHz sample m sums the inputs n
+    with floor(21 n / sdrclk) = m, sdrclk = fs / 4000; d8psk.c:353-381)."""
     sdrclk = fs // 4000
     tbl = fs // STEPRATE
-    n_raw = len(raw) // 2
+    m = np.arange(m_lo, m_hi)
+    lo = -(-m * sdrclk // 21)
+    hi = -(-(m + 1) * sdrclk // 21)
+    n = np.arange(lo[0], hi[-1])
     lo_tbl = np.exp(-2j * math.pi * f_offset / fs * np.arange(tbl))
+    cs = np.concatenate([[0.0], np.cumsum(front(raw, fmt, n) * lo_tbl[n % tbl])])
+    return (cs[hi - lo[0]] - cs[lo - lo[0]]) / (hi - lo)
+
+
+def sync_slope_hz(raw: np.ndarray, fmt: str, fs: int, f_offset: float, t0s) -> np.ndarray:
+    """The frequency offset (Hz) of the sync fit at each trigger t0 (84 kHz
+    samples from the stream's start) on the channel at f_offset from the
+    mixer's centre, in float64, from the capture's samples (`_decimate`):
+    branch 0 of the matched filter; the phases of the 17 symbols that end
+    at t0 - 2, less the sync word, unwrapped step by step; the slope of
+    their least-squares line (d8psk.c:219-230, 262-290)."""
     span = 8 * (NBPH - 1) + len(TAP0)          # 84 kHz samples the fit reads
     lever = np.arange(NBPH) - (NBPH - 1) // 2
     out = np.empty(len(t0s))
     for j, t0 in enumerate(t0s):
-        m = np.arange(int(t0) - 2 - span + 1, int(t0) - 1)
-        lo = -(-m * sdrclk // 21)
-        hi = -(-(m + 1) * sdrclk // 21)
-        n = np.arange(lo[0], hi[-1])
-        k = 2 * (n % n_raw)
-        x = (raw[k] - DC_OFFSET) + 1j * (raw[k + 1] - DC_OFFSET)
-        cs = np.concatenate([[0.0], np.cumsum(x * lo_tbl[n % tbl])])
-        y = (cs[hi - lo[0]] - cs[lo - lo[0]]) / (hi - lo)
+        y = _decimate(raw, fmt, fs, f_offset, int(t0) - 2 - span + 1, int(t0) - 1)
         f0 = np.array([np.dot(TAP0, y[8 * s: 8 * s + len(TAP0)]) for s in range(NBPH)])
         a = np.angle(f0) - SYNC_PHASES
         d = np.diff(a)
@@ -196,8 +214,8 @@ def sync_slope_hz(raw: np.ndarray, fs: int, f_offset: float, t0s) -> np.ndarray:
     return out
 
 
-def slope_gaps(raw: np.ndarray, fs: int, fc_hz: float, freqs_hz, soft, n_max: int,
-               seed: int) -> np.ndarray:
+def slope_gaps(raw: np.ndarray, fmt: str, fs: int, fc_hz: float, freqs_hz, soft,
+               n_max: int, seed: int) -> np.ndarray:
     """|program's offset - reference's| (Hz) over a sample, drawn from the
     seed, of the bursts with a frame that the window yielded.  soft: (N, 3)
     rows of (channel, t0, offset in Hz as the program gave it)."""
@@ -209,40 +227,24 @@ def slope_gaps(raw: np.ndarray, fs: int, fc_hz: float, freqs_hz, soft, n_max: in
     pick = np.sort(rng.choice(len(soft), size=min(n_max, len(soft)), replace=False))
     soft = soft[pick]
     gaps = np.empty(len(soft))
+    f0 = mix_center_hz(fmt, fs, fc_hz)
     for ci in np.unique(soft[:, 0]).astype(int):
         rows = soft[:, 0] == ci
-        ref = sync_slope_hz(raw, fs, freqs_hz[ci] - fc_hz, soft[rows, 1].astype(np.int64))
+        ref = sync_slope_hz(raw, fmt, fs, freqs_hz[ci] - f0, soft[rows, 1].astype(np.int64))
         gaps[rows] = np.abs(soft[rows, 2] - ref)
     return gaps
 
 
-def _decimate(raw: np.ndarray, fs: int, f_offset: float, m_lo: int, m_hi: int) -> np.ndarray:
-    """84 kHz samples m_lo..m_hi-1 of the channel at f_offset, in float64:
-    bytes less the DC offset, the wrapped LO table, integrate and dump
-    21 / sdrclk (d8psk.c:353-381)."""
-    sdrclk = fs // 4000
-    tbl = fs // STEPRATE
-    n_raw = len(raw) // 2
-    m = np.arange(m_lo, m_hi)
-    lo = -(-m * sdrclk // 21)
-    hi = -(-(m + 1) * sdrclk // 21)
-    n = np.arange(lo[0], hi[-1])
-    k = 2 * (n % n_raw)
-    lo_tbl = np.exp(-2j * math.pi * f_offset / fs * np.arange(tbl))
-    x = (raw[k] - DC_OFFSET) + 1j * (raw[k + 1] - DC_OFFSET)
-    cs = np.concatenate([[0.0], np.cumsum(x * lo_tbl[n % tbl])])
-    return (cs[hi - lo[0]] - cs[lo - lo[0]]) / (hi - lo)
-
-
-def sync_errors(raw: np.ndarray, fs: int, f_offset: float, t_lo: int, t_hi: int):
+def sync_errors(raw: np.ndarray, fmt: str, fs: int, f_offset: float, t_lo: int, t_hi: int):
     """(t, error) of the sync fit at every odd t in [t_lo, t_hi) on the
-    channel at f_offset, in float64 (demodD8psk's WSYNC branch,
-    d8psk.c:232-333): the phases of branch 0 of the matched filter at the
-    17 symbols that end at t, less the sync word, unwrapped step by step,
-    less their mean and least-squares line; the sum of squared residuals."""
+    channel at f_offset from the mixer's centre, in float64 (demodD8psk's
+    WSYNC branch, d8psk.c:232-333): the phases of branch 0 of the matched
+    filter at the 17 symbols that end at t, less the sync word, unwrapped
+    step by step, less their mean and least-squares line; the sum of
+    squared residuals."""
     t = np.arange(t_lo | 1, t_hi, 2)
     first = int(t[0]) - 8 * (NBPH - 1) - len(TAP0) + 1
-    y = _decimate(raw, fs, f_offset, first, int(t[-1]) + 1)
+    y = _decimate(raw, fmt, fs, f_offset, first, int(t[-1]) + 1)
     win = np.lib.stride_tricks.sliding_window_view(y, len(TAP0))
     ph = np.angle(win @ TAP0)                     # phase of the window ending at first+16+i
     end = t - first - len(TAP0) + 1               # index of the window ending at t
@@ -278,11 +280,12 @@ def owed(t: np.ndarray, err: np.ndarray, start: int) -> bool:
     return not early.any()
 
 
-def unsyncable(raw: np.ndarray, fs: int, fc_hz: float, freqs_hz, bursts) -> list:
+def unsyncable(raw: np.ndarray, fmt: str, fs: int, fc_hz: float, freqs_hz, bursts) -> list:
     """Indices of the bursts that the sync rule cannot catch (`owed`)."""
+    f0 = mix_center_hz(fmt, fs, fc_hz)
     out = []
     for i, b in enumerate(bursts):
-        t, err = sync_errors(raw, fs, freqs_hz[b.chan] - fc_hz,
+        t, err = sync_errors(raw, fmt, fs, freqs_hz[b.chan] - f0,
                              b.start + TRUE_SYNC[0] - SYNC_WINDOW - 4, b.start + TRUE_SYNC[1] + 4)
         if not owed(t, err, b.start):
             out.append(i)
