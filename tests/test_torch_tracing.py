@@ -248,3 +248,54 @@ def test_live_result_wait_in_the_snapshot(capture, route):
     else:
         assert snap["live_blocks"] == 0
         assert pipe.metrics.live_result_wait_s == 0
+
+
+@pytest.fixture(scope="module")
+def real_capture():
+    """An airspy f32real capture, 2 Re{wide} at 6 Msps, and its plan (fc
+    given as F0 - fs/4, so that F0 is the stimulus's centre)."""
+    fs = 6_000_000
+    wide, freqs, fc, _truth = stimulus.make_capture(fs, 2, 0.5)
+    real = (2 * wide.real).astype(np.float32)
+    return real[: len(real) - len(real) % 6000], freqs, fc - fs // 4
+
+
+@pytest.mark.parametrize("fmt,route", [("cu8", "file"), ("f32real", "file"),
+                                       ("cu8", "live")])
+def test_h2d_bytes_counts_every_raw_upload(capture, real_capture, monkeypatch,
+                                           fmt, route):
+    """h2d_bytes is the sum of the raw blocks dispatch_fused uploaded: on
+    the file route each block's whole-period segment, total_p x p_in
+    samples at 2 bytes (cu8) or 4 (f32real) a sample; the snapshot
+    reports it."""
+    uploads = []
+    real_to_device = tpipe._to_device
+
+    def recorded(arr, device):
+        out = real_to_device(arr, device)
+        uploads.append(out.nbytes)
+        return out
+    monkeypatch.setattr(tpipe, "_to_device", recorded)
+    if fmt == "f32real":
+        raw, freqs, fc = real_capture
+        cfg = PipelineConfig(freqs_hz=[float(f) for f in freqs], fs=6_000_000,
+                             fc_hz=float(fc), real_input=True, max_candidates=16,
+                             max_symbols=512, max_out=48)
+        pipe = tpipe.Pipeline(cfg, device="cpu")
+    else:
+        raw = capture[0]
+        pipe = _pipe(capture)
+    pipe.metrics = PipelineMetrics()
+    if route == "file":
+        blocks = list(pipe.stream_wideband_u8(raw, block_seconds=BLOCK_S, fmt=fmt))
+    else:
+        blocks = list(pipe.stream_live(io.BytesIO(raw.tobytes()), fmt, BLOCK_S))
+    assert len(uploads) == len(blocks) >= 2
+    assert pipe.metrics.h2d_bytes == sum(uploads)
+    assert pipe.metrics.snapshot()["h2d_bytes"] == pipe.metrics.h2d_bytes
+    if route == "file":
+        ch = pipe.channelizer
+        total_p = tpipe.stream_geometry(ch.p_in, ch.p_out, pipe.cfg.fs,
+                                        pipe.cfg.max_symbols, BLOCK_S)[3]
+        per_sample = {"cu8": 2, "f32real": 4}[fmt]
+        assert uploads == [total_p * ch.p_in * per_sample] * len(blocks)

@@ -42,6 +42,9 @@ class PipelineMetrics:
     # unread meanwhile), and the blocks it handed out
     live_result_wait_s: float = 0.0
     live_blocks: int = 0
+    # bytes of raw capture the fused routes uploaded to the device
+    # (dispatch_fused's block.upload), margins and padding included
+    h2d_bytes: int = 0
 
     def observe_bursts(self, bursts) -> None:
         for b in bursts:
@@ -74,6 +77,7 @@ class PipelineMetrics:
             "device_stream_s": round(self.device_time_s, 3),
             "live_result_wait_s": round(self.live_result_wait_s, 3),
             "live_blocks": self.live_blocks,
+            "h2d_bytes": self.h2d_bytes,
             "samples_per_s": round(self.samples_in / wall, 1),
             "crc_pass_per_burst": round(
                 self.frames_crc_ok / max(self.bursts_attempted, 1), 4

@@ -243,6 +243,9 @@ def dispatch_fused(pipe: "Pipeline", raw: np.ndarray, fmt: str,
     spans = None if block is None else pipe.spans
     with timed(spans, "block.upload", block, "block.dispatch"):
         raw_dev = _to_device(raw[: per * t], pipe.device)
+        if pipe.metrics is not None:
+            with pipe._metrics_lock:
+                pipe.metrics.h2d_bytes += raw_dev.nbytes
     return wideband_raw_decode(
         raw_dev, ch, fmt, cfg.use_pallas,
         cfg.max_candidates, cfg.max_symbols, pipe._max_out(), core_start,
