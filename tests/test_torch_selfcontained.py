@@ -17,10 +17,11 @@ Three checks:
     what their docstrings say, in nothing else; metrics.py and io/live.py,
     which the port extends, hold the original's statements in order, with
     the port's own beside them, one snapshot key renamed, and three counters
-    added to PipelineMetrics and its snapshot), or, for the two that were
-    rewritten around the same code (the native deframer's binding, which
-    builds elsewhere, and the stimulus, cut out of bench.py), equal outputs
-    on seeded inputs.
+    added to PipelineMetrics and its snapshot), or, for those that were
+    rewritten (the native deframer's binding, which builds elsewhere; the
+    stimulus, cut out of bench.py; the four host modules of FrameDecoder's
+    hot path, which handle a frame as whole byte strings), equal outputs on
+    seeded inputs.
 """
 import ast
 import json
@@ -177,20 +178,18 @@ def _normalised_tree(path: str) -> ast.Module:
     return tree
 
 
-# port path (under vdlm2dec_tpu_torch/) -> original (under vdlm2dec_tpu/)
+# port path (under vdlm2dec_tpu_torch/) -> original (under vdlm2dec_tpu/);
+# host/acars.py, avlc.py, flights.py and output.py, rewritten to work on
+# whole byte strings, are held to their originals' outputs (REWRITTEN below)
 COPIES = {
     "constants.py": "constants.py",
     "golden/codec.py": "golden/codec.py",
     "golden/dsp.py": "golden/dsp.py",
     "io/sdr.py": "io/sdr.py",
     "io/live.py": "io/live.py",
-    "host/avlc.py": "host/avlc.py",
-    "host/acars.py": "host/acars.py",
     "host/fans.py": "host/fans.py",
     "host/arinc.py": "host/arinc.py",
     "host/xid.py": "host/xid.py",
-    "host/flights.py": "host/flights.py",
-    "host/output.py": "host/output.py",
     "host/checkpoint.py": "host/checkpoint.py",
     "host/decoder.py": "host/decoder.py",
     "metrics.py": "metrics.py",
@@ -340,3 +339,340 @@ def test_stimulus_copy_equals_bench(monkeypatch, tmp_path):
             assert len(truth_p) >= 2
             assert np.array_equal(stimulus.to_u8(wide_p), bench.to_u8(wide_j))
     assert len(list(tmp_path.glob("*.npz"))) == 4
+
+
+# ------------------------------------------- host copies held by their output
+
+def _with_crc(body: bytes, last: int = 0x7F) -> bytes:
+    """An ACARS payload: body, its inner CRC (low byte first), a last byte
+    that the CRC does not cover."""
+    from vdlm2dec_tpu_torch.constants import crc_update
+
+    crc = 0
+    for b in body:
+        crc = crc_update(crc, b)
+    return body + bytes([crc & 0xFF, crc >> 8, last])
+
+
+def _acars_body(rng) -> bytes:
+    """mode, reg, ack, label, bid, bs, then the text part and be, each drawn
+    so that every branch of the parse is taken: mode past 'Z', bid 0 or past
+    '9', label[1] 0x7F, bs 0x03, a text shorter than no + fid, any byte."""
+    pick = lambda *vals: vals[int(rng.integers(0, len(vals)))]
+    mode = pick(ord("2"), ord("Z"), ord("["), 0xDB, int(rng.integers(0, 256)))
+    reg = pick(b".N123AB", b"..F-GKX", b"D-ABCDE", b"A9CABCD",
+               rng.integers(0, 256, 7).astype(np.uint8).tobytes())
+    ack = pick(0x15, 0x95, ord("A"), int(rng.integers(0, 256)))
+    label = bytes([pick(ord("Q"), ord("1"), ord("H")),
+                   pick(ord("0"), 0x7F, 0xFF, ord("E"))])
+    bid = pick(0, 0x80, ord("1"), ord("9"), ord(":"), ord("A"))
+    bs = pick(0x02, 0x03, 0x83, int(rng.integers(0, 256)))
+    text = rng.integers(0, 256, int(rng.integers(0, 40))).astype(np.uint8)
+    return (bytes([mode]) + reg + bytes([ack]) + label + bytes([bid, bs])
+            + text.tobytes() + bytes([pick(0x03, 0x17, 0x97)]))
+
+
+def _acars_inputs(rng) -> list:
+    out = []
+    for _ in range(300):
+        good = _with_crc(_acars_body(rng), int(rng.integers(0, 256)))
+        out.append(good)
+        bad = bytearray(good)
+        bit = int(rng.integers(0, 8 * len(bad)))
+        bad[bit // 8] ^= 1 << (bit % 8)        # the last byte too: no CRC
+        out.append(bytes(bad))
+    for n in range(0, 20):                     # n < 13 and the short payloads
+        for _ in range(4):
+            body = rng.integers(0, 256, max(n - 3, 0)).astype(np.uint8).tobytes()
+            out.append(_with_crc(body, int(rng.integers(0, 256)))[:n]
+                       if n < 3 else _with_crc(body, int(rng.integers(0, 256))))
+    return out
+
+
+def _as_types(data: bytes, rng) -> list:
+    """The integer inputs the original takes: uint8, int64 with high bits,
+    int8 (negative values) and a list of ints."""
+    a = np.frombuffer(data, np.uint8)
+    return [a, a.astype(np.int64) + 256 * rng.integers(0, 3, len(a)),
+            a.view(np.int8), a.tolist()]
+
+
+def _case_parse_acars(port, orig, rng):
+    from dataclasses import asdict
+
+    seen = {"none": 0, "msg": 0, "bs3": 0, "short": 0}
+    for data in _acars_inputs(rng):
+        want_b = None
+        for x in _as_types(data, rng):
+            mine, theirs = port.acars.parse_acars(x), orig.acars.parse_acars(x)
+            assert (mine is None) == (theirs is None), data
+            assert mine is None or asdict(mine) == asdict(theirs), data
+            assert port.acars.acars_crc_ok(x) == orig.acars.acars_crc_ok(x)
+            if want_b is None:
+                want_b = theirs
+        mine = port.acars.parse_acars(data)      # bytes: the uint8 result
+        assert (mine is None) == (want_b is None)
+        if mine is None:
+            seen["none"] += 1
+            continue
+        seen["msg"] += 1
+        seen["bs3"] += mine.bs == 0x03
+        seen["short"] += len(data) < 4 + 13 + 10
+        assert asdict(mine) == asdict(port.acars.parse_acars(
+            np.frombuffer(data, np.uint8)))
+    assert min(seen.values()) > 10, seen
+
+
+def _case_fixreg(port, orig, rng):
+    prefixes = (orig.acars.REG_PREFIX_1 + orig.acars.REG_PREFIX_2
+                + orig.acars.REG_PREFIX_3)
+    raws = []
+    for pre in prefixes:
+        for tail in ("ABC", "-ABC", "1234", "", "A", "-", "ABCDEFG", ".X"):
+            s = pre + tail
+            raws += [s[:7], s.rjust(7, ".")[:7], ("." + s)[:7], s[:3]]
+    alphabet = "ABCDNF9XZ23.-"
+    raws += ["".join(alphabet[i] for i in rng.integers(0, len(alphabet), 7))
+             for _ in range(500)]
+    hyphenated = 0
+    for raw in raws:
+        data = raw.encode("latin-1")
+        for x in (raw, data, np.frombuffer(data, np.uint8),
+                  np.frombuffer(data, np.uint8).astype(np.int64)):
+            assert port.acars.fixreg(x) == orig.acars.fixreg(x), raw
+        hyphenated += "-" in port.acars.fixreg(raw) and "-" not in raw
+    assert hyphenated > 100
+
+
+def _case_icaoaddr(port, orig, rng):
+    for pos in range(4):
+        for v in range(256):
+            b = rng.integers(0, 256, 7).astype(np.uint8)
+            b[3 + pos] = v
+            for x in (b, b.tobytes(), b.astype(np.int64)):
+                for off in (0, 3):
+                    assert port.avlc.icaoaddr(x, off) == \
+                        orig.avlc.icaoaddr(x, off), (pos, v, off)
+
+
+_JSON_VALUES = [True, False, 0, -7, 1 << 40, 0.1, 1.5e-7, 1e20, -0.0,
+                float("nan"), float("inf"), "", "plain", 'quo"te', "back\\slash",
+                "é ü ß", "日本", "\U0001f600", "".join(map(chr, range(32))),
+                "\x7f\x80\xff", None, [1, "a"]]
+
+
+def _case_json(port, orig, rng):
+    from vdlm2dec_tpu.host.flights import Flight as JFlight
+
+    for _ in range(300):
+        mine, theirs = port.output.JsonBuilder(), orig.output.JsonBuilder()
+        for j in range(int(rng.integers(0, 12))):
+            value = _JSON_VALUES[int(rng.integers(0, len(_JSON_VALUES)))]
+            raw = bool(rng.random() < 0.2)
+            key = ("k%d" % j, "é", 'q"', "\n")[int(rng.integers(0, 4))]
+            mine.add(key, value, raw=raw)
+            theirs.add(key, value, raw=raw)
+        assert mine.render() == theirs.render()
+    assert port.output.APP_JSON == '{"name":"vdlm2dec","ver":"2.3"}'
+    for _ in range(200):
+        args = (int(rng.integers(0, 1 << 27)), int(rng.integers(0, 1 << 27)),
+                bool(rng.random() < 0.5), int(rng.integers(0, 2)),
+                int(rng.integers(0, 2)), float(rng.uniform(0, 2e9)),
+                float(rng.uniform(118e6, 137e6)),
+                ("", "BENCH", "é\"")[int(rng.integers(0, 3))])
+        jm = port.output.build_json_header(*args)
+        jt = orig.output.build_json_header(*args)
+        data = _with_crc(_acars_body(rng))
+        msg_m = port.acars.parse_acars(np.frombuffer(data, np.uint8))
+        if msg_m is not None:
+            msg_t = orig.acars.parse_acars(np.frombuffer(data, np.uint8))
+            oooi_m, _ = port.acars.decode_label(msg_m)
+            oooi_t, _ = orig.acars.decode_label(msg_t)
+            oooi_m.epu = oooi_t.epu = int(rng.integers(0, 2))
+            oooi_m.lat = oooi_t.lat = float(rng.uniform(-90, 90))
+            port.output.add_acars_json(jm, msg_m, oooi_m)
+            orig.output.add_acars_json(jt, msg_t, oooi_t)
+        assert port.output.finish_json(jm) == orig.output.finish_json(jt)
+        fm = port.flights.Flight(addr=args[0], reg="F-GABC", fid="AF123")
+        ft = JFlight(addr=args[0], reg="F-GABC", fid="AF123")
+        for f in (fm, ft):
+            f.oooi.sa, f.oooi.da, f.oooi.epu = "LFPG", "EGLL", 6
+        port.output.add_xid_json(jm, fm)
+        orig.output.add_xid_json(jt, ft)
+        assert jm.render() == jt.render()
+        assert port.output.route_json(fm, args[5], args[7]) == \
+            orig.output.route_json(ft, args[5], args[7])
+
+
+def _case_flight_tracker(port, orig, rng, tmp_path):
+    from vdlm2dec_tpu.host import checkpoint as jcheckpoint
+    from vdlm2dec_tpu_torch.host import checkpoint
+
+    def table(tr):
+        return [jcheckpoint._flight_to_dict(f) for f in tr.flights()]
+
+    mine, theirs = port.flights.FlightTracker(), orig.flights.FlightTracker()
+    t = 1000.0
+    expired = 0
+    # a random walk, then steps on a quarter-second grid that land on the
+    # expiry's edge and step back by less than a second
+    steps = [float(x) for x in rng.normal(60.0, 400.0, 1000)]
+    steps[700] = 5000.0                        # past the 1800 s expiry
+    grid = (-1800.0, -0.5, -0.25, 0.25, 1.0, 60.0, 1799.75, 1800.0, 1800.25)
+    steps += [grid[int(i)] for i in rng.integers(0, len(grid), 1000)]
+    for i, step in enumerate(steps):
+        t += step                              # out of order when negative
+        addr = (1 << 24) | int(rng.integers(0, 60))
+        a, b = mine.add(addr, t), theirs.add(addr, t)
+        assert jcheckpoint._flight_to_dict(a) == jcheckpoint._flight_to_dict(b)
+        before = len(theirs)
+        assert table(mine) == table(theirs), i
+        expired += before < 60 and len(theirs) < before
+        if i == 900:                           # through a checkpoint and back
+            pm, pt = tmp_path / "port.json", tmp_path / "orig.json"
+            checkpoint.save_checkpoint(str(pm), 7, mine, {"x": 1})
+            jcheckpoint.save_checkpoint(str(pt), 7, theirs, {"x": 1})
+            assert pm.read_bytes() == pt.read_bytes()
+            mine = port.flights.FlightTracker()
+            assert checkpoint.load_checkpoint(str(pm), mine) == (7, {"x": 1})
+    for now in (float("inf"), t, float("nan"), t):
+        mine.add(5, now), theirs.add(5, now)
+        assert table(mine) == table(theirs)
+    assert len(theirs) == 1
+    pm, pt = tmp_path / "port.json", tmp_path / "orig.json"
+    checkpoint.save_checkpoint(str(pm), 9, mine)
+    jcheckpoint.save_checkpoint(str(pt), 9, theirs)
+    assert pm.read_bytes() == pt.read_bytes()
+
+
+class _Pkg:
+    def __init__(self, root):
+        import importlib
+
+        for name in ("acars", "avlc", "flights", "output"):
+            setattr(self, name, importlib.import_module(f"{root}.host.{name}"))
+
+
+@pytest.mark.parametrize("case", ["parse_acars", "fixreg", "icaoaddr",
+                                  "json", "flight_tracker"])
+def test_rewritten_host_copy_outputs_equal_original(case, tmp_path):
+    """acars.py, avlc.py, output.py and flights.py of the port give what the
+    JAX package's originals give on the same seeded inputs."""
+    port, orig = _Pkg("vdlm2dec_tpu_torch"), _Pkg("vdlm2dec_tpu")
+    rng = np.random.default_rng(17)
+    args = (tmp_path,) if case == "flight_tracker" else ()
+    globals()[f"_case_{case}"](port, orig, rng, *args)
+
+
+def _decoder_corpus():
+    """DecodedBursts of 1-3 frames (flags and FCS included) from the
+    benchmark's generator: its ACARS and XID frames, and beside them OOOI
+    texts, ACARS frames with odd fields or a flipped bit, frames from the
+    ground, to address 0 or all ones, undecodable payloads, short frames."""
+    sys.path.insert(0, os.path.join(REPO, "benchmark"))
+    try:
+        from vbench import gen
+    finally:
+        sys.path.remove(os.path.join(REPO, "benchmark"))
+    from vdlm2dec_tpu_torch._tables import DecodedBurst
+    from vdlm2dec_tpu_torch.golden.codec import frame_fcs
+
+    rng = np.random.default_rng(23)
+    fleet, regs, ground = gen._fleet(rng, 40)
+    oooi = {"Q1": "LFPG0800081208300945LFPGEGLL", "QE": "LFPG1234EGLL",
+            "15": "FST01LFPGEGLLN48500E002500", "44": "POS02,N48500E002500,"
+            "EGLL,LFPG,00000000001234", "20": "RST" + "X" * 19 + "LFPGEGLL",
+            "2Z": "EGLL", "16": "POSA1 N48500W002500", "H1": "#M1BPOSN48500E00250"}
+    contents = []
+    for i in range(1200):
+        u = rng.random()
+        kind = "xid" if u < 0.1 else "acars"
+        f = gen._fields(kind, int(rng.integers(20, 201)), rng, fleet, ground,
+                        regs, i)
+        if kind == "xid":
+            contents.append(gen.xid_frame(f))
+            continue
+        if u < 0.2:
+            f["label"] = list(oooi)[int(rng.integers(0, len(oooi)))]
+            f["text"] = oooi[f["label"]]
+        c = gen.acars_frame(f)
+        hdr = c[:12]
+        if u > 0.95:                               # from the ground
+            c = gen.avlc_header(gen.GROUND_D | int(ground[0]),
+                                gen.AIRCRAFT | f["icao"], 0x03) + c[9:]
+        elif u > 0.9:
+            c = hdr + _with_crc(_acars_body(rng))
+        elif u > 0.87:
+            c = bytearray(c)
+            c[int(rng.integers(12, len(c)))] ^= 1 << int(rng.integers(0, 8))
+            c = bytes(c)
+        elif u > 0.84:                             # undecodable
+            c = c[:9] + rng.integers(0, 256, int(rng.integers(1, 40))
+                                     ).astype(np.uint8).tobytes()
+        elif u > 0.83:
+            c = c[:9] + bytes([0x82]) + c[10:int(rng.integers(10, 14))]
+        elif u > 0.82:
+            c = gen.avlc_header(gen.AIRCRAFT | (0xFFFFFF * int(rng.integers(0, 2))),
+                                gen.GROUND_D | 5, 0x03) + c[9:]
+        elif u > 0.81:
+            c = c[:int(rng.integers(9, 13))]
+        contents.append(bytes(c))
+    bursts, i = [], 0
+    while i < len(contents):
+        k = int(rng.integers(1, 4))
+        frames = []
+        for c in contents[i: i + k]:
+            fcs = frame_fcs(np.frombuffer(c, np.uint8))
+            frames.append(np.frombuffer(
+                b"\x7e" + c + bytes([fcs & 0xFF, fcs >> 8]) + b"\x7e",
+                np.uint8).copy())
+        bursts.append(DecodedBurst(
+            channel=i % 8, t0=37 * i, time_s=0.0119 * i + 0.0001 * (i % 7),
+            freq_hz=136.6e6 + 25e3 * (i % 8), ppm=float(rng.uniform(-9, 9)),
+            length_bits=0, nbrow=1, nlbyte=1, block=None, rs_counts=[],
+            frames=frames))
+        i += k
+    return bursts
+
+
+_DECODER_SETTINGS = {
+    "json": (dict(verbose=0, jsonout=True, station_id="BENCH"), None),
+    "verbose1": (dict(verbose=1), None),
+    "verbose2": (dict(verbose=2, jsonout=True), None),
+    "routeout": (dict(verbose=0, jsonout=True, routeout=True), None),
+    "regout": (dict(verbose=1, regout=True), "Q1:QE:5Z:SA"),
+    "undecmess": (dict(verbose=2, jsonout=True, undecmess=True), None),
+    "grndmess": (dict(verbose=1, jsonout=True, grndmess=True,
+                      emptymess=True, station_id="é"), None),
+}
+
+
+@pytest.mark.parametrize("setting", sorted(_DECODER_SETTINGS))
+def test_frame_decoder_output_equals_original(setting):
+    """The port's FrameDecoder, which runs the rewritten host modules, prints
+    what the JAX package's prints, to the byte, on a seeded corpus of 1200
+    frames, and keeps the same counts and flight table."""
+    import io
+    from dataclasses import asdict
+
+    from vdlm2dec_tpu.host import checkpoint as jcheckpoint
+    from vdlm2dec_tpu.host import decoder as jdecoder
+    from vdlm2dec_tpu.host import output as joutput
+    from vdlm2dec_tpu_torch.host import decoder, output
+
+    kw, labels = _DECODER_SETTINGS[setting]
+    logs = io.StringIO(), io.StringIO()
+    mine = decoder.FrameDecoder(output.OutputConfig(logfile=logs[0], **kw),
+                                labels, time_base=0.0)
+    theirs = jdecoder.FrameDecoder(joutput.OutputConfig(logfile=logs[1], **kw),
+                                   labels, time_base=0.0)
+    bursts = _decoder_corpus()
+    for b in bursts:
+        assert mine.process_burst(b) == theirs.process_burst(b)
+    assert logs[0].getvalue() == logs[1].getvalue()
+    assert len(logs[0].getvalue()) > 2_000
+    assert asdict(mine.stats) == asdict(theirs.stats)
+    st = mine.stats
+    assert min(st.acars, st.xid, st.filtered, st.undecoded) > 0, st
+    assert [jcheckpoint._flight_to_dict(f) for f in mine.flights.flights()] == \
+        [jcheckpoint._flight_to_dict(f) for f in theirs.flights.flights()]

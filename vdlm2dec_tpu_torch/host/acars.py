@@ -7,11 +7,12 @@ branch, replicated for output parity and documented in tests).
 """
 from __future__ import annotations
 
+import binascii
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..constants import crc_update
+from ..constants import reversebits
 
 # ITU aircraft-registration prefixes (interoperability data, outacars.c:44-75)
 REG_PREFIX_1 = ["C", "B", "F", "D", "2", "I", "P", "M", "G", "Z"]
@@ -37,31 +38,26 @@ REG_PREFIX_2 = [
 REG_PREFIX_3 = ["A9C", "A4O", "9XR", "3DC"]
 
 
+_PREFIX_SETS = (frozenset(REG_PREFIX_3), frozenset(REG_PREFIX_2),
+                frozenset(REG_PREFIX_1))
+
+
 def fixreg(raw7: bytes | str) -> str:
     """Dot-strip + hyphenate a 7-char registration (outacars.c:77-121)."""
     if isinstance(raw7, (bytes, bytearray, np.ndarray)):
-        s = "".join(chr(int(c)) for c in raw7[:7])
+        s = "".join(map(chr, raw7[:7]))
     else:
         s = str(raw7)[:7]
     p = s.lstrip(".")
     if len(p) >= 4:
-        t = None
-        for pre in REG_PREFIX_3:
-            if p.startswith(pre):
-                t = 3
+        # every prefix of REG_PREFIX_<t> is t characters long: the first
+        # list (3, then 2, then 1) that holds p's head decides, as the
+        # reference's startswith scan over the lists in that order does
+        for t, prefixes in zip((3, 2, 1), _PREFIX_SETS):
+            if p[:t] in prefixes:
+                if len(p) > t and p[t] != "-":
+                    return (p[:t] + "-" + p[t:])[:9]
                 break
-        if t is None:
-            for pre in REG_PREFIX_2:
-                if p.startswith(pre):
-                    t = 2
-                    break
-        if t is None:
-            for pre in REG_PREFIX_1:
-                if p.startswith(pre):
-                    t = 1
-                    break
-        if t is not None and len(p) > t and p[t] != "-":
-            return (p[:t] + "-" + p[t:])[:9]
     return p[:8]
 
 
@@ -95,62 +91,75 @@ class Oooi:
     alt: int = 0
 
 
+# The ACARS CRC (update_crc, crc.h:3) is CRC-16 with the reflected
+# polynomial 0x8408 and init 0.  Over the bit-reversed bytes, CRC-CCITT
+# (0x1021, init 0: binascii.crc_hqx) holds the same register bit-reversed,
+# so the one is 0 exactly when the other is.
+BITREV8 = bytes(reversebits(b, 8) for b in range(256))
+PARITY_STRIP = bytes(b & 0x7F for b in range(256))
+
+
+def _payload_bytes(payload) -> tuple[bytes, int]:
+    """The payload as bytes (each value's low 8 bits, which is all the CRC
+    reads) and its last value as given (the parse leaves it unmasked)."""
+    if isinstance(payload, (bytes, bytearray)):
+        data = bytes(payload)
+        return data, data[-1] if data else 0
+    a = np.asarray(payload)
+    if a.dtype != np.uint8:
+        a = np.asarray(a, dtype=np.int64)
+        return (a & 0xFF).astype(np.uint8).tobytes(), int(a[-1]) if len(a) else 0
+    data = a.tobytes()
+    return data, data[-1] if data else 0
+
+
+def _crc_ok(data: bytes) -> bool:
+    return binascii.crc_hqx(data[:-1].translate(BITREV8), 0) == 0
+
+
 def acars_crc_ok(payload: np.ndarray) -> bool:
     """Inner ACARS CRC over payload[:-1] must be zero (outacars.c:222-228)."""
-    crc = 0
-    for b in payload[:-1]:
-        crc = crc_update(crc, int(b))
-    return crc == 0
+    return _crc_ok(_payload_bytes(payload)[0])
 
 
 def parse_acars(payload: np.ndarray) -> AcarsMessage | None:
     """Field parse per outacars.c:233-289.  payload = hdata[13 .. l-3]
     (after the ff ff 01 ACARS prefix).  Returns None on CRC failure.
     """
-    txt = np.asarray(payload, dtype=np.int64)
-    n = len(txt)
+    data, last = _payload_bytes(payload)
+    n = len(data)
     if n < 13:
         return None
-    if not acars_crc_ok(txt):
+    if not _crc_ok(data):
         return None
-    txt = txt.copy()
-    txt[: n - 1] &= 0x7F
+    # parity stripped from all but the last byte (outacars.c:229-231); the
+    # last is read only as bs (n == 13) or be, as an integer
+    txt = data[: n - 1].translate(PARITY_STRIP).decode("latin-1")
 
     msg = AcarsMessage()
-    k = 0
-    msg.mode = int(txt[k]); k += 1
-    msg.reg = fixreg(txt[k : k + 7]); k += 7
-    ack = int(txt[k]); k += 1
-    msg.ack = "!" if ack == 0x15 else chr(ack)
-    l0 = int(txt[k]); k += 1
-    l1 = int(txt[k]); k += 1
-    if l1 == 0x7F:
-        l1 = ord("d")
-    msg.label = chr(l0) + chr(l1)
-    bid = int(txt[k]); k += 1
-    msg.bid = " " if bid == 0 else chr(bid)
-    msg.bs = int(txt[k]); k += 1
+    msg.mode = ord(txt[0])
+    msg.reg = fixreg(txt[1:8])
+    msg.ack = "!" if txt[8] == "\x15" else txt[8]
+    msg.label = txt[9] + ("d" if txt[10] == "\x7f" else txt[10])
+    msg.bid = " " if txt[11] == "\x00" else txt[11]
+    msg.bs = ord(txt[12]) if n > 13 else last
+    k = 13
 
     msg.no = ""
     msg.fid = ""
     msg.text = ""
     if msg.bs != 0x03:
+        # the fields end where the text does, 4 bytes before the payload's
+        # end (CRC, suffix): no, then fid, then the text, each cut there
+        end = max(k, n - 4)
         if msg.mode <= ord("Z") and ord(msg.bid) <= ord("9"):
-            i = 0
-            no = []
-            while i < 4 and k < n - 4:
-                no.append(chr(int(txt[k]))); i += 1; k += 1
-            msg.no = "".join(no)
-            i = 0
-            fid = []
-            while i < 6 and k < n - 4:
-                fid.append(chr(int(txt[k]))); i += 1; k += 1
-            msg.fid = "".join(fid)
-        chars = []
-        while k < n - 4:
-            chars.append(chr(int(txt[k]))); k += 1
-        msg.text = "".join(chars)
-    msg.be = int(txt[k]) if k < n else 0
+            msg.no = txt[k: min(k + 4, end)]
+            k += len(msg.no)
+            msg.fid = txt[k: min(k + 6, end)]
+            k += len(msg.fid)
+        msg.text = txt[k:end]
+        k = end
+    msg.be = ord(txt[k]) if k < n - 1 else last if k < n else 0
     return msg
 
 

@@ -12,13 +12,19 @@ import numpy as np
 from ..constants import reversebits
 
 
+# per byte value: its address bits, reversed (out.c:426-435): the first
+# byte carries 6 (bits 2-7), the other three 7 (bits 1-7)
+_REV6 = tuple(reversebits(b >> 2, 6) for b in range(256))
+_REV7 = tuple(reversebits(b >> 1, 7) for b in range(256))
+
+
 def icaoaddr(b: bytes | np.ndarray, off: int = 0) -> int:
     """27-bit VDL address from 4 bytes, per-byte bit-reversed (out.c:426-435)."""
     return (
-        (reversebits(int(b[off]) >> 2, 6) << 21)
-        | (reversebits(int(b[off + 1]) >> 1, 7) << 14)
-        | (reversebits(int(b[off + 2]) >> 1, 7) << 7)
-        | reversebits(int(b[off + 3]) >> 1, 7)
+        (_REV6[int(b[off]) & 0xFF] << 21)
+        | (_REV7[int(b[off + 1]) & 0xFF] << 14)
+        | (_REV7[int(b[off + 2]) & 0xFF] << 7)
+        | _REV7[int(b[off + 3]) & 0xFF]
     )
 
 

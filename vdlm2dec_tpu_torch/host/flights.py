@@ -29,13 +29,25 @@ class Flight:
 
 class FlightTracker:
     def __init__(self):
-        self._flights: list[Flight] = []   # MRU order, head = most recent
+        self._flights = []                 # MRU order, head = most recent
+
+    @property
+    def _flights(self) -> list[Flight]:
+        return self._list
+
+    @_flights.setter
+    def _flights(self, flights: list[Flight]) -> None:
+        self._list = flights
+        # a lower bound of every entry's tl; NaN, unknown: the next add
+        # sweeps and sets it
+        self._tl_floor = float("nan")
 
     def add(self, addr: int, now: float) -> Flight:
+        flights = self._list
         fl = None
-        for i, f in enumerate(self._flights):
+        for i, f in enumerate(flights):
             if f.addr == addr:
-                fl = self._flights.pop(i)
+                fl = flights.pop(i)
                 break
         if fl is None:
             fl = Flight(addr=addr, ts=now)
@@ -43,10 +55,16 @@ class FlightTracker:
         fl.oooi.epu = 0
         fl.oooi.alt = 0
         fl.nbm += 1
-        self._flights.insert(0, fl)
-        self._flights = [
-            f for f in self._flights if f.tl >= now - EXPIRY_S
-        ]
+        flights.insert(0, fl)
+        if now < self._tl_floor:
+            self._tl_floor = now
+        # the sweep keeps the entries with tl >= now - EXPIRY_S; while the
+        # floor passes that test, so does every entry, and the list stands
+        cut = now - EXPIRY_S
+        if not self._tl_floor >= cut:
+            self._list = [f for f in flights if f.tl >= cut]
+            self._tl_floor = min((f.tl for f in self._list),
+                                 default=float("inf"))
         return fl
 
     def merge_acars(self, fl: Flight, msg, oooi: Oooi) -> None:
@@ -77,7 +95,7 @@ class FlightTracker:
             fl.oooi.alt = info.alt or 0
 
     def __len__(self) -> int:
-        return len(self._flights)
+        return len(self._list)
 
     def flights(self) -> list[Flight]:
-        return list(self._flights)
+        return list(self._list)

@@ -19,6 +19,7 @@ import sys
 import time
 from dataclasses import dataclass
 from datetime import datetime, timezone
+from json.encoder import encode_basestring_ascii as _json_str
 
 import numpy as np
 
@@ -160,21 +161,24 @@ class JsonBuilder:
         self.items.append((key, value, raw))
 
     def render(self) -> str:
+        # keys and strings as json.dumps writes them (ASCII, escaped); bool
+        # before int, since a bool is an int; floats and the rest through
+        # json.dumps
         parts = []
         for key, value, raw in self.items:
             if raw:
                 sval = str(value)
-            elif isinstance(value, bool):
-                sval = "true" if value else "false"
-            elif isinstance(value, float):
-                sval = json.dumps(value)
+            elif value is True:
+                sval = "true"
+            elif value is False:
+                sval = "false"
+            elif isinstance(value, str):
+                sval = _json_str(value)
             elif isinstance(value, int):
                 sval = str(value)
-            elif isinstance(value, str):
-                sval = json.dumps(value)
             else:
                 sval = json.dumps(value)
-            parts.append(f"{json.dumps(key)}:{sval}")
+            parts.append(_json_str(key) + ":" + sval)
         return "{" + ",".join(parts) + "}"
 
 
@@ -208,11 +212,18 @@ def build_json_header(
         jb.add("is_onground", isonground)
     # cJSON appends the app object at build time, so it precedes the
     # ACARS/XID fields added later (out.c:248-252)
+    jb.add("app", APP_JSON, raw=True)
+    return jb
+
+
+def _app_json() -> str:
     app = JsonBuilder()
     app.add("name", APP_NAME)
     app.add("ver", APP_VER)
-    jb.add("app", app.render(), raw=True)
-    return jb
+    return app.render()
+
+
+APP_JSON = _app_json()
 
 
 def finish_json(jb: JsonBuilder) -> str:
