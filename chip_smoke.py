@@ -5,10 +5,9 @@
     python3 chip_smoke.py --phases mesh,mesh_wideband,cli_mesh,multihost
                                    # only these (of the mesh phases, scaling,
                                    # drive_formats, soak and of bench_quick,
-                                   # pipelined_workers, wide_64, wide_76,
-                                   # band_760, kchan_2000, k2_wide, stages,
-                                   # snr), for work on them: prints no
-                                   # result line
+                                   # wide_64, wide_76, band_760, kchan_2000,
+                                   # k2_wide, stages, snr), for work on
+                                   # them: prints no result line
 
 Phases, each printed as one JSON line with the card's name and power limit:
   card       nvidia-smi name and power limit, torch and CUDA versions
@@ -130,11 +129,6 @@ Phases, each printed as one JSON line with the card's name and power limit:
              program alone on a staged block, CUDA events) and the
              paced latency leg at 0.25 s blocks: full recall, no overflow,
              at least three passes each, K1 once per block
-  pipelined_workers  the primary leg with two fetch threads
-             (bench.run_config(fetch_workers=2)), then its block decoded six
-             times through PipelinedDecoder with one and with two fetch
-             threads: full recall, no overflow, the same frames block by
-             block, K1 once per block
   wide_64, wide_76  the bench's 64- and 76-channel legs (25 kHz spacing,
              residue-space channelizer, 1 s in one block): full recall, no
              overflow, and K1 against both plain versions on the (64, T) and
@@ -201,7 +195,7 @@ from vdlm2dec_tpu_torch import (_build, bench, cli, scaling_bench, snr_sweep,
                                 stimulus)
 from vdlm2dec_tpu_torch._tables import (HALO_LEFT, PipelineConfig,
                                         packed_stats, period_for,
-                                        stream_geometry)
+                                        right_margin, stream_geometry)
 from vdlm2dec_tpu_torch.host import native
 from vdlm2dec_tpu_torch.host.decoder import FrameDecoder
 from vdlm2dec_tpu_torch.kernel_times import (card_string, cold_ms, event_ms,
@@ -214,8 +208,7 @@ from vdlm2dec_tpu_torch.parallel.sharding import (ShardedDecoder,
                                                   ShardedWidebandDecoder,
                                                   burst_window, halo_exchange,
                                                   make_mesh, shard_channels)
-from vdlm2dec_tpu_torch.pipeline import (STAGES, Pipeline, PipelinedDecoder,
-                                         channelize_raw)
+from vdlm2dec_tpu_torch.pipeline import STAGES, Pipeline, channelize_raw
 from vdlm2dec_tpu_torch.stage_times import (block_segment, slice_pipeline,
                                             stage_table)
 from vdlm2dec_tpu_torch.trigger_compare import (flip_at_threshold,
@@ -269,8 +262,7 @@ WIDE_PLANS = {
     "kchan_2000": bench.KCHAN_LEG,
 }
 WIDE_BLOCK_S = {"band_760": bench.BAND_BLOCK_S}   # streamed in blocks
-WIDE_PHASES = ("bench_quick", "pipelined_workers", *WIDE_PLANS, "k2_wide",
-               "stages", "snr")
+WIDE_PHASES = ("bench_quick", *WIDE_PLANS, "k2_wide", "stages", "snr")
 BENCH_SECONDS = 4.0              # the bench's default block
 LATENCY_SECONDS = 8.0            # run_latency's default feed
 
@@ -306,7 +298,7 @@ CAPTURES = {
 CAPTURE_PHASES = {
     "kchan_2000": ("kchan_2000",), "band_760": ("band_760", "stages"),
     "slice": (*MESH_PHASES, "stages"),
-    "bench_primary": ("bench_quick", "pipelined_workers"),
+    "bench_primary": ("bench_quick",),
     "bench_latency": ("bench_quick",), "wide_76": ("wide_76", "k2_wide"),
     "wide_64": ("wide_64", "k2_wide"), "air": (),
 }
@@ -421,7 +413,7 @@ def kernel_modes_phase(card, raw, reader, freqs, fc):
     torch.cuda.synchronize()
     out.append(k1_case(card, y, route="fir", block_seconds=SLICE_BLOCK_S))
     rpb = core_p * ch.p_in
-    span = HALO_LEFT + core_p * ch.p_out + 24 + 8 * MAX_SYMBOLS
+    span = HALO_LEFT + core_p * ch.p_out + right_margin(MAX_SYMBOLS)
     x = reader.read(0, 2 * rpb)
     y = torch.cat([ch.channelize(x[:rpb], period0=0),
                    ch.channelize(x[rpb:], period0=core_p)], dim=1)
@@ -1301,55 +1293,6 @@ def bench_quick_phase(card, synth):
     return launches
 
 
-def pipelined_workers_phase(card, synth):
-    """The primary leg with two fetch threads, then the primary's 4 s
-    block decoded six times through PipelinedDecoder with one and with
-    two: the same frames block by block, each the truth."""
-    iters = 6
-    route = dict(device="cuda", chan_impl="auto", sync_impl="stream")
-    await_capture(synth, "bench_primary")
-    out, counted = counted_bench_leg(
-        card, "pipelined_workers", "primary",
-        lambda: bench.run_config(N_CHAN, BENCH_SECONDS, iters, BENCH_SYMBOLS,
-                                 None, False, fetch_workers=2, **route),
-        1, 1 + bench.PASSES * iters)
-    launches = Counter(counted)
-    check_wall_leg("pipelined_workers/primary", out)
-    check(out["fetch_workers"] == 2, f"pipelined_workers: {out}")
-    pipe, raw, truth = bench.leg_pipeline(N_CHAN, BENCH_SECONDS, BENCH_SYMBOLS,
-                                          None, False, **route)
-    raw = bench.whole_tiles(pipe, raw)
-    want = truth_in_span(truth, len(raw) // 2, FS)
-    frames = {}
-    for workers in (1, 2):
-        pd = PipelinedDecoder(pipe, workers=workers)
-        reset_launches()                       # counts of the main path
-        t = time.perf_counter()
-        try:
-            blocks = [c for _ in range(iters) for c in pd.submit(raw)]
-            blocks += list(pd.drain())
-        finally:
-            pd.close()
-        wall = time.perf_counter() - t
-        counted = main_path_launches()
-        launches.update(counted)
-        frames[workers] = [frame_counter(pipe._finish(c, 0)) for c in blocks]
-        emit("pipelined_workers", card, leg="frames", fetch_workers=workers,
-             depth=pd.depth, blocks=len(blocks),
-             recall=[f"{sum((f & want).values())}/{sum(want.values())}"
-                     for f in frames[workers]],
-             launches=counted, wall_s=wall,
-             msps=iters * len(raw) // 2 / wall / 1e6)
-        expect = dict.fromkeys(counted, 0)
-        expect["sync_scan[stream]"] = iters
-        check(counted == expect, f"pipelined_workers: launches {counted}")
-    check(len(frames[2]) == iters and frames[1] == frames[2]
-          and all(f == want for f in frames[2]),
-          "pipelined_workers: two fetch threads decode other frames than "
-          "one, or than the truth")
-    return launches
-
-
 def wide_leg(phase, synth):
     """A wide leg's pipeline on the card and its capture, cut to whole
     periods, made once for everything that runs on it: (pipe, cu8 bytes,
@@ -1498,8 +1441,6 @@ def wide_run(card, synth, only=None):
     run = (lambda phase: only is None or phase in only)
     if run("bench_quick"):
         launches.update(bench_quick_phase(card, synth))
-    if run("pipelined_workers"):
-        launches.update(pipelined_workers_phase(card, synth))
     for phase in WIDE_PLANS:
         if any(map(run, CAPTURE_PHASES[phase])):
             legs[phase] = wide_leg(phase, synth)

@@ -86,7 +86,7 @@ def test_decode_wideband_u8_matches_jax(capture, sync_impl):
     raw, freqs, fc, truth = capture
     jp, tp = _pipes(freqs, fc, sync_impl)
     jb = np.asarray(jpipe._dispatch_fused(jp, raw, "cu8", 0, 0))
-    tb = tpipe.dispatch_fused(tp, raw, "cu8", 0, 0).numpy()
+    tb = tp.dispatch_fused(raw, "cu8", 0, 0).numpy()
     _assert_packed_match(jb, tb)
     assert tp.channelizer._period_cursor == len(raw) // 2 // 2000
     # the public entry point on a fresh pipeline: the same candidates
@@ -197,7 +197,7 @@ def test_decode_wideband_u8_lo_wrap_false_matches_jax(small_captures):
     half = len(raw) // 2 - (len(raw) // 2) % 4000
     for part in (raw[:half], raw[half:]):
         jb = np.asarray(jpipe._dispatch_fused(jp, part, "cu8", 0, 0))
-        tb = tpipe.dispatch_fused(tp, part, "cu8", 0, 0).numpy()
+        tb = tp.dispatch_fused(part, "cu8", 0, 0).numpy()
         _assert_packed_match(jb, tb)
         assert tp.channelizer._period_cursor == jp.channelizer._period_cursor
     cands = tpipe.Pipeline(tp.cfg, device="cpu").decode_wideband_u8(raw)
@@ -226,10 +226,10 @@ def _cand_keys(cands):
 
 
 def test_pipelined_decoder_workers_match_one_worker_and_jax(capture):
-    """PipelinedDecoder(workers=2, depth=3) yields the candidates of
-    workers=1, block by block in submission order, and those of the JAX
-    package's PipelinedDecoder(workers=2); close() joins every fetch
-    thread."""
+    """The port's PipelinedDecoder, one fetch thread, yields block by
+    block in submission order the candidates of the JAX package's
+    PipelinedDecoder with one fetch thread and with two; close() joins
+    its thread, and again is a no-op."""
     raw, freqs, fc, _truth = capture
     jp, tp = _pipes(freqs, fc, "stream")
     blocks = np.split(raw, 4)                  # 250 periods each
@@ -244,23 +244,23 @@ def test_pipelined_decoder_workers_match_one_worker_and_jax(capture):
             out += [_cand_keys(c) for c in pd.drain()]
         finally:
             pd.close()
+        pd.close()
         assert set(threading.enumerate()) - before == set()
         return out
 
-    two = tpipe.PipelinedDecoder(tp, depth=3, workers=2)
-    assert (two.depth, two.workers) == (3, 2)
-    got = run(two, 2)
     one = tpipe.PipelinedDecoder(tp)
-    assert (one.depth, one.workers) == (2, 1)
-    assert run(one, 1) == got
-    want = run(jpipe.PipelinedDecoder(jp, workers=2), 2)
-    assert len(got) == len(blocks) and any(got) and got == want
+    got = run(one, 1)
+    assert not one._thread.is_alive()
+    assert len(got) == len(blocks) and any(got)
+    assert run(jpipe.PipelinedDecoder(jp), 1) == got
+    assert run(jpipe.PipelinedDecoder(jp, workers=2), 2) == got
 
 
 def test_pipelined_decoder_many_workers_under_thread_switching(capture):
-    """More fetch threads than cores, switching every 10 us: every block
-    comes back once, in order, and the stage counters that the threads
-    fold in under the pipeline's lock lose no update."""
+    """The fetch thread beside the consumer, switching every 10 us: every
+    block comes back once, in order, with the candidates of
+    decode_wideband_u8 run block by block, and the stage counters that
+    the fetch thread folds in under the pipeline's lock lose no update."""
     import sys
 
     from vdlm2dec_tpu_torch.metrics import PipelineMetrics
@@ -268,26 +268,27 @@ def test_pipelined_decoder_many_workers_under_thread_switching(capture):
     raw, freqs, fc, _truth = capture
     _, tp = _pipes(freqs, fc, "stream")
     blocks = np.split(raw, 20)                 # 50 periods each
-    out, counts = {}, {}
+    tp.metrics = PipelineMetrics()
+    want = [_cand_keys(tp.decode_wideband_u8(b)) for b in blocks]
+    want_counts = (tp.metrics.sync_candidates,
+                   tp.metrics.bursts_rejected_header)
+    tp.metrics = PipelineMetrics()
     interval = sys.getswitchinterval()
     try:
-        for workers in (1, 12):
-            sys.setswitchinterval(1e-5)
-            tp.metrics = PipelineMetrics()
-            pd = tpipe.PipelinedDecoder(tp, workers=workers)
-            try:
-                got = [_cand_keys(c) for b in blocks for c in pd.submit(b)]
-                got += [_cand_keys(c) for c in pd.drain()]
-            finally:
-                pd.close()
-            assert not any(th.is_alive() for th in pd._threads)
-            out[workers] = got
-            counts[workers] = (tp.metrics.sync_candidates,
-                               tp.metrics.bursts_rejected_header)
+        sys.setswitchinterval(1e-5)
+        pd = tpipe.PipelinedDecoder(tp)
+        try:
+            got = [_cand_keys(c) for b in blocks for c in pd.submit(b)]
+            got += [_cand_keys(c) for c in pd.drain()]
+        finally:
+            pd.close()
     finally:
         sys.setswitchinterval(interval)
-    assert len(out[12]) == len(blocks) and out[12] == out[1]
-    assert counts[12] == counts[1] and counts[1][0] > 0
+    assert not pd._thread.is_alive()
+    assert len(got) == len(blocks) and got == want and any(got)
+    assert (tp.metrics.sync_candidates,
+            tp.metrics.bursts_rejected_header) == want_counts
+    assert want_counts[0] > 0
 
 
 def test_unported_configs_raise():

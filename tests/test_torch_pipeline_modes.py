@@ -40,7 +40,7 @@ def test_xla_packed_rows_match_jax(capture, chan_impl):
     raw, freqs, fc, truth = capture
     jp, tp = _pipes(freqs, fc, "xla", chan_impl=chan_impl)
     jb = np.asarray(jpipe._dispatch_fused(jp, raw, "cu8", 0, 0))
-    tb = tpipe.dispatch_fused(tp, raw, "cu8", 0, 0).numpy()
+    tb = tp.dispatch_fused(raw, "cu8", 0, 0).numpy()
     _assert_packed_match(jb, tb)
     got = tp._finish(tpipe.unpack_results(tb), 0)
     assert _frames(got) == sorted((c, b) for c, b, *_ in truth)

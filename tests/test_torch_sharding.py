@@ -256,7 +256,7 @@ def test_sharded_matches_unsharded_with_seam_burst(seam_streams):
     pipe = tpipe.Pipeline(PipelineConfig(**kw, mesh=_cpu_mesh(2, 4)),
                           device="cpu")
     seen = []
-    pipe._observe_packed = lambda buf, s=0.0: seen.append(buf.shape)
+    pipe.observe_packed = lambda buf, s=0.0: seen.append(buf.shape)
     assert _frames(pipe.decode_channels(seam_streams)) == _frames(ref)
     assert seen == [(8 * 4, 2096)]        # one fetch, through the observer
     # torch planes on the pipeline's device take the same road

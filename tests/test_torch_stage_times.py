@@ -65,13 +65,13 @@ def test_block_segment_is_the_streams_cut(capture, monkeypatch):
                          max_out=24)
     pipe = Pipeline(cfg, device="cpu")
     got = []
-    orig = P.dispatch_fused
+    orig = P.Pipeline.dispatch_fused
 
     def spy(pipe_, seg, fmt, core_start, core_len, *block):
         got.append((np.array(seg), core_start, core_len))
         return orig(pipe_, seg, fmt, core_start, core_len, *block)
 
-    monkeypatch.setattr(P, "dispatch_fused", spy)
+    monkeypatch.setattr(P.Pipeline, "dispatch_fused", spy)
     for _ in pipe.stream_wideband_u8(raw, block_seconds=BLOCK_S):
         pass
     assert len(got) == 3

@@ -157,7 +157,7 @@ def test_fetch_spans_carry_the_fetch_threads_id(capture):
         out = list(pd.submit(seg, block=log.new_block()))
         out += list(pd.submit(seg, block=log.new_block()))
         out += list(pd.drain())
-        fetch_ids = {th.native_id for th in pd._threads}
+        fetch_ids = {pd._thread.native_id}
     finally:
         pd.close()
     assert len(out) == 2

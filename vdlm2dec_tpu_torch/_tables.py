@@ -405,6 +405,12 @@ class PipelineConfig:
         return self.sdrclk if self.sdrclk is not None else self.fs // 4000
 
 
+def right_margin(max_symbols: int) -> int:
+    """Decimated samples after a streaming block's core: one max burst
+    window, so that a burst triggered at the core's end decodes whole."""
+    return 24 + 8 * max_symbols
+
+
 def stream_geometry(p_in: int, p_out: int, fs: int, max_symbols: int,
                     block_seconds: float, align: int = 1
                     ) -> tuple[int, int, int, int]:
@@ -413,7 +419,7 @@ def stream_geometry(p_in: int, p_out: int, fs: int, max_symbols: int,
     samples, the right one a max burst window; total_p is rounded up to
     align, absorbed into the right margin."""
     lmarg_p = -(-HALO_LEFT // p_out)
-    rmarg_p = -(-(24 + 8 * max_symbols) // p_out)
+    rmarg_p = -(-right_margin(max_symbols) // p_out)
     core_p = max(1, int(block_seconds * fs) // p_in)
     total_p = lmarg_p + core_p + rmarg_p
     total_p += (-total_p) % align

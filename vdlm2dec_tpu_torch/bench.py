@@ -59,7 +59,7 @@ from . import stimulus
 from ._tables import PipelineConfig, packed_stats
 from .kernel_times import card_string
 from .metrics import PipelineMetrics
-from .pipeline import (Pipeline, PipelinedDecoder, _to_device, dispatch_fused,
+from .pipeline import (Pipeline, PipelinedDecoder, _to_device,
                        wideband_raw_decode)
 from .stage_times import stage_table
 
@@ -217,26 +217,22 @@ def _profiler(profile_dir: str | None):
 def run_config(channels: int, seconds: float, iters: int, max_symbols: int,
                max_candidates: int | None, pallas: bool, device="cuda",
                profile_dir: str | None = None,
-               block_seconds: float | None = None, fetch_workers: int = 1,
-               **leg) -> dict:
+               block_seconds: float | None = None, **leg) -> dict:
     """Wall throughput of one config (run_leg) on its own capture.  leg:
     leg_pipeline's other arguments."""
     pipe, raw, truth = leg_pipeline(channels, seconds, max_symbols,
                                     max_candidates, pallas, device,
                                     block_seconds=block_seconds, **leg)
-    return run_leg(pipe, raw, truth, iters, profile_dir, block_seconds,
-                   fetch_workers)
+    return run_leg(pipe, raw, truth, iters, profile_dir, block_seconds)
 
 
 def run_leg(pipe: Pipeline, raw: np.ndarray, truth, iters: int,
             profile_dir: str | None = None,
-            block_seconds: float | None = None,
-            fetch_workers: int = 1) -> dict:
+            block_seconds: float | None = None) -> dict:
     """Wall throughput of a pipeline on its cu8 capture: the recall gate
     on a first decode, then PASSES timed passes of `iters` decodes of the
-    capture, through PipelinedDecoder (one block a decode, fetch_workers
-    fetch threads) or, with block_seconds, through stream_wideband_u8 in
-    blocks of that size."""
+    capture, through PipelinedDecoder (one block a decode) or, with
+    block_seconds, through stream_wideband_u8 in blocks of that size."""
     fs = pipe.cfg.fs
     channels = len(pipe.cfg.freqs_hz)
     label = f"{channels}ch"
@@ -271,7 +267,7 @@ def run_leg(pipe: Pipeline, raw: np.ndarray, truth, iters: int,
             else:
                 # the fetch thread behind the dispatcher overlaps the
                 # copies and the host's unpacking with device compute
-                pd = PipelinedDecoder(pipe, workers=fetch_workers)
+                pd = PipelinedDecoder(pipe)
                 n_res = 0
                 try:
                     for _ in range(iters):
@@ -311,8 +307,6 @@ def run_leg(pipe: Pipeline, raw: np.ndarray, truth, iters: int,
            "device": str(pipe.device), "card": device_card(pipe.device)}
     if block_seconds:
         out["block_seconds"] = block_seconds
-    else:
-        out["fetch_workers"] = fetch_workers
     if cuda:
         out["peak_mem_mb"] = round(
             torch.cuda.max_memory_allocated(pipe.device) / 2**20, 1)
@@ -425,8 +419,8 @@ def run_analysis(seconds: float, max_symbols: int, pallas: bool,
 
 def measure_h2d(pipe: Pipeline, raw: np.ndarray, n: int = 5) -> float:
     """ms of one block's copy from pageable host memory to the card, as
-    dispatch_fused makes it (the median of n): the floor under a block's
-    turnaround on this machine."""
+    Pipeline.dispatch_fused makes it (the median of n): the floor under a
+    block's turnaround on this machine."""
     _need_cuda(pipe, "the host-to-device copy")
     times = []
     for _ in range(n + 1):
@@ -465,7 +459,7 @@ def run_latency(block_seconds: float, seconds: float = 8.0,
     raw = stimulus.to_u8(wide)
     n_blocks = len(wide) // core
     # tables, the kernels' build and the allocator, before anything is timed
-    dispatch_fused(pipe, raw[: 2 * core], "cu8", 0, 0).cpu()
+    pipe.dispatch_fused(raw[: 2 * core], "cu8", 0, 0).cpu()
 
     pd = PipelinedDecoder(pipe)
     lat: list[float] = []
@@ -574,8 +568,6 @@ def build_parser() -> argparse.ArgumentParser:
                          "on eligible plans; dft/matmul/pfb force one")
     ap.add_argument("--compute", default="f32", choices=["f32", "bf16"],
                     help="bf16 channelizer operands (float32 sums)")
-    ap.add_argument("--fetch-workers", type=int, default=1,
-                    help="the primary leg's PipelinedDecoder fetch threads")
     ap.add_argument("--sync-impl", default="stream",
                     choices=["xla", "stream", "fused"],
                     help="the sync kernel's numeric mode; xla = stream's "
@@ -681,8 +673,7 @@ def main(argv=None) -> int:
     leg("primary", lambda: run_config(
         args.channels, args.seconds, args.iters, args.max_symbols,
         args.max_candidates, args.pallas, profile_dir=args.profile,
-        fetch_workers=args.fetch_workers, chan_impl=args.chan_impl,
-        sync_impl=args.sync_impl, **common))
+        chan_impl=args.chan_impl, sync_impl=args.sync_impl, **common))
     primary = extra.pop("primary")
     if args.device_legs:
         # the primary's device program alone: same config, the copies and

@@ -124,7 +124,7 @@ class SpanLog:
     `capacity` records (the oldest dropped and counted in `dropped`) and
     read when the run ends (`records()`).  Host clock only: no profiler,
     and no span per burst or per kernel.  Names and sites: pipeline.py,
-    PipelinedDecoder.  Thread-safe: the fetch threads record too."""
+    PipelinedDecoder.  Thread-safe: the fetch thread records too."""
 
     def __init__(self, capacity: int = SPAN_CAPACITY):
         self.capacity = capacity

@@ -40,6 +40,7 @@ from ._tables import (
     burst_span_samples,
     packed_stats,
     resolve_chan_impl,
+    right_margin,
     stream_geometry,
     unpack_results,
 )
@@ -222,35 +223,53 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.to(device)
 
 
-def dispatch_fused(pipe: "Pipeline", raw: np.ndarray, fmt: str,
-                   core_start: int, core_len: int,
-                   block: int | None = None) -> torch.Tensor:
-    """Enqueue one raw block (shared by the synchronous path and
-    PipelinedDecoder): trim to whole periods (to 32-period tiles under
-    use_pallas, as the JAX package does), run the device program, which
-    advances the period cursor.  Returns the packed rows on the device.
-    The fused program is boxcar-only, as in the JAX package.  block (the
-    block's SpanLog number, while pipe.spans is on) records the upload
-    and each stage's enqueue as children of block.dispatch."""
-    ch = pipe.channelizer
-    cfg = pipe.cfg
-    if cfg.filter_mode != "boxcar":
-        raise ValueError("the fused device program is boxcar-only; use "
-                         "stream_wideband for filter_mode='fir'")
-    per, _pad = RAW_FMT[fmt]
-    t = len(raw) // per
-    t -= t % (ch.p_in * (32 if cfg.use_pallas else 1))
-    spans = None if block is None else pipe.spans
-    with timed(spans, "block.upload", block, "block.dispatch"):
-        raw_dev = _to_device(raw[: per * t], pipe.device)
-        if pipe.metrics is not None:
-            with pipe._metrics_lock:
-                pipe.metrics.h2d_bytes += raw_dev.nbytes
-    return wideband_raw_decode(
-        raw_dev, ch, fmt, cfg.use_pallas,
-        cfg.max_candidates, cfg.max_symbols, pipe._max_out(), core_start,
-        core_len, sync_impl=cfg.sync_impl,
-        mark=None if spans is None else spans.marker(block, "block.dispatch"))
+class _BlockPlan:
+    """The cut of a fused stream (stream_wideband_u8, _stream_live_fused)
+    into overlapping raw segments, addressed by absolute position in the
+    capture's native items: block i's segment is a left margin, a core of
+    core_p periods and a right margin.  Under use_pallas a segment is
+    whole 32-period tiles, as in the JAX package: the longer right margin
+    can change which triggers win a channel's candidate slots, so the
+    packed rows follow it.  stream_geometry is looked up when a stream
+    starts."""
+
+    def __init__(self, pipe: "Pipeline", fmt: str, block_seconds: float):
+        ch, cfg = pipe.channelizer, pipe.cfg
+        self.per, self.pad_val = RAW_FMT[fmt]
+        self.lmarg_p, _rmarg_p, self.core_p, self.total_p = stream_geometry(
+            ch.p_in, ch.p_out, cfg.fs, cfg.max_symbols, block_seconds,
+            align=32 if cfg.use_pallas else 1)
+        self.p_out = ch.p_out
+        self.lmarg_dec = self.lmarg_p * ch.p_out
+        self.core_dec = self.core_p * ch.p_out
+        self.items_p = ch.p_in * self.per        # raw items per period
+
+    def bounds(self, i: int) -> tuple[int, int]:
+        """[lo, hi) of block i's segment in raw items (lo < 0 for block 0:
+        its left margin precedes the capture)."""
+        lo = (i * self.core_p - self.lmarg_p) * self.items_p
+        return lo, lo + self.total_p * self.items_p
+
+    def segment(self, raw: np.ndarray, i: int) -> np.ndarray:
+        """Block i's segment of the whole capture raw, padded beyond the
+        capture's whole samples with the format's neutral value."""
+        lo, hi = self.bounds(i)
+        seg = np.full(hi - lo, self.pad_val, dtype=raw.dtype)
+        s_lo, s_hi = max(lo, 0), min(hi, len(raw) - len(raw) % self.per)
+        if s_hi > s_lo:
+            seg[s_lo - lo: s_hi - lo] = raw[s_lo:s_hi]
+        return seg
+
+    def n_blocks(self, items: int) -> int:
+        """Blocks of a capture of `items` raw items: each whose core holds
+        a whole sample."""
+        return -(-(items - items % self.per) // (self.core_p * self.items_p))
+
+    def owned(self, i: int, items: int) -> int:
+        """Decimated samples of each channel that block i owns in a capture
+        of `items` raw items: its core, up to the last whole period."""
+        total_dec = items // self.items_p * self.p_out
+        return max(0, min(self.core_dec, total_dec - i * self.core_dec))
 
 
 class Pipeline:
@@ -307,10 +326,11 @@ class Pipeline:
             return min(self.cfg.max_out, n)
         return min(n, 512)
 
-    def _observe_packed(self, buf: np.ndarray, device_s: float = 0.0) -> None:
-        """Fold a packed buffer's stage counters into metrics and warn once
-        on candidate overflow (silent frame loss otherwise).  Called from
-        the fetch thread too, hence the lock."""
+    def observe_packed(self, buf: np.ndarray, device_s: float = 0.0) -> None:
+        """Fold a packed buffer's stage counters (and device_s, its device
+        time) into metrics and warn once on candidate overflow (silent
+        frame loss otherwise).  Called from the fetch thread too, hence
+        the lock."""
         stats = packed_stats(buf)
         with self._metrics_lock:
             warn = stats["candidates_overflow"] and not self._overflow_warned
@@ -347,7 +367,7 @@ class Pipeline:
         if self.metrics is not None:
             self.metrics.decimated_samples += int(y.shape[0] * y.shape[1])
         if self._sharded is not None:
-            cands = self._sharded.decode(y, observer=self._observe_packed)
+            cands = self._sharded.decode(y, observer=self.observe_packed)
         else:
             cands = self._decode_block(y)
         return self._finish(cands, t_offset=0)
@@ -359,11 +379,16 @@ class Pipeline:
         ownership to the core region; t0 then returns core-relative."""
         t_start = time.perf_counter()
         y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
-        buf = device_decode_packed(
+        return self._collect(t_start, device_decode_packed(
             y.contiguous(), self.cfg.max_candidates, self.cfg.max_symbols,
             self._max_out(), core_start=core_start, core_len=core_len,
-            sync_impl=self.cfg.sync_impl).cpu().numpy()
-        self._observe_packed(buf, time.perf_counter() - t_start)
+            sync_impl=self.cfg.sync_impl))
+
+    def _collect(self, t_start: float, packed: torch.Tensor) -> list[dict]:
+        """Fetch a block's packed rows, observe them with the time since
+        t_start, and unpack the live candidates."""
+        buf = packed.cpu().numpy()
+        self.observe_packed(buf, time.perf_counter() - t_start)
         return unpack_results(buf)
 
     # -- native raw samples: one device program per block ---------------------
@@ -376,9 +401,38 @@ class Pipeline:
         Consecutive calls continue the LO phase (lo_wrap=False) from the
         period cursor."""
         t_start = time.perf_counter()
-        buf = dispatch_fused(self, raw, fmt, core_start, core_len).cpu().numpy()
-        self._observe_packed(buf, time.perf_counter() - t_start)
-        return unpack_results(buf)
+        return self._collect(t_start, self.dispatch_fused(raw, fmt, core_start,
+                                                          core_len))
+
+    def dispatch_fused(self, raw: np.ndarray, fmt: str, core_start: int,
+                       core_len: int, block: int | None = None
+                       ) -> torch.Tensor:
+        """Enqueue one raw block (shared by decode_wideband_u8 and
+        PipelinedDecoder): trim to whole periods (to 32-period tiles under
+        use_pallas, as the JAX package does), run the device program, which
+        advances the period cursor.  Returns the packed rows on the device.
+        The fused program is boxcar-only, as in the JAX package.  block (the
+        block's SpanLog number, while self.spans is on) records the upload
+        and each stage's enqueue as children of block.dispatch."""
+        ch, cfg = self.channelizer, self.cfg
+        if cfg.filter_mode != "boxcar":
+            raise ValueError("the fused device program is boxcar-only; use "
+                             "stream_wideband for filter_mode='fir'")
+        per, _pad = RAW_FMT[fmt]
+        t = len(raw) // per
+        t -= t % (ch.p_in * (32 if cfg.use_pallas else 1))
+        spans = None if block is None else self.spans
+        with timed(spans, "block.upload", block, "block.dispatch"):
+            raw_dev = _to_device(raw[: per * t], self.device)
+            if self.metrics is not None:
+                with self._metrics_lock:
+                    self.metrics.h2d_bytes += raw_dev.nbytes
+        return wideband_raw_decode(
+            raw_dev, ch, fmt, cfg.use_pallas,
+            cfg.max_candidates, cfg.max_symbols, self._max_out(), core_start,
+            core_len, sync_impl=cfg.sync_impl,
+            mark=None if spans is None else spans.marker(block,
+                                                         "block.dispatch"))
 
     def fused_route(self, fmt: str) -> bool:
         """Whether a stream of format fmt goes through the fused device
@@ -467,55 +521,25 @@ class Pipeline:
         PipelinedDecoder.submit and its fetch, and block.finish."""
         if not self.cfg.lo_wrap:
             raise ValueError("fused streaming requires lo_wrap=True")
-        ch = self.channelizer
-        per, pad_val = RAW_FMT[fmt]
-        p_in, p_out = ch.p_in, ch.p_out
-        # under use_pallas blocks are whole 32-period tiles, as in the JAX
-        # package: the longer right margin can change which triggers win
-        # a channel's candidate slots, so the packed rows follow it
-        lmarg_p, _rmarg_p, core_p, total_p = stream_geometry(
-            p_in, p_out, self.cfg.fs, self.cfg.max_symbols, block_seconds,
-            align=32 if self.cfg.use_pallas else 1)
-        lmarg_dec = lmarg_p * p_out
-        core_dec = core_p * p_out
-        t_samp = len(raw) // per
-        total_dec = (t_samp // p_in) * p_out
-        n_core = -(-t_samp // (core_p * p_in))
-        n_chan = len(self.f_offsets)
+        plan = _BlockPlan(self, fmt, block_seconds)
         if prev_end is None:
             prev_end = {}               # per channel: end of the last burst
-        pending: list[tuple] = []                # (t_off, block) FIFO
+        pending: list[tuple] = []                # (i, block) FIFO
         spans = self.spans
-
-        def seg_bytes(i):
-            lo = (i * core_p - lmarg_p) * p_in * per
-            hi = lo + total_p * p_in * per
-            seg = np.full(hi - lo, pad_val, dtype=raw.dtype)
-            s_lo, s_hi = max(lo, 0), min(hi, per * t_samp)
-            if s_hi > s_lo:
-                seg[s_lo - lo: s_hi - lo] = raw[s_lo:s_hi]
-            return seg
-
-        def finish(cands, t_off, block):
-            if self.metrics is not None:
-                i = t_off // core_dec
-                self.metrics.decimated_samples += n_chan * max(
-                    0, min(core_dec, total_dec - i * core_dec))
-            with timed(spans, "block.finish", block):
-                return self._finish(cands, t_offset=t_off, prev_end=prev_end)
-
-        pd = PipelinedDecoder(self, fmt=fmt, core_start=lmarg_dec,
-                              core_len=core_dec)
+        pd = PipelinedDecoder(self, fmt=fmt, core_start=plan.lmarg_dec,
+                              core_len=plan.core_dec)
         try:
-            for i in range(start_block, n_core):
+            for i in range(start_block, plan.n_blocks(len(raw))):
                 block = None if spans is None else spans.new_block()
                 with timed(spans, "block.segment", block):
-                    seg = seg_bytes(i)
-                pending.append((i * core_dec, block))
+                    seg = plan.segment(raw, i)
+                pending.append((i, block))
                 for cands in pd.submit(seg, block):
-                    yield finish(cands, *pending.pop(0))
+                    yield self._finish_block(plan, cands, *pending.pop(0),
+                                             len(raw), prev_end)
             for cands in pd.drain():
-                yield finish(cands, *pending.pop(0))
+                yield self._finish_block(plan, cands, *pending.pop(0),
+                                         len(raw), prev_end)
         finally:
             pd.close()          # even when the generator is abandoned
 
@@ -538,7 +562,7 @@ class Pipeline:
         raw_per_block = max(p_in,
                             int(block_seconds * self.cfg.fs) // p_in * p_in)
         lmargin = HALO_LEFT
-        rmargin = 24 + 8 * self.cfg.max_symbols
+        rmargin = right_margin(self.cfg.max_symbols)
         core = raw_per_block // p_in * ch.p_out
         span = lmargin + core + rmargin
         c = len(self.f_offsets)
@@ -581,40 +605,22 @@ class Pipeline:
         decimated_samples.  While self.spans is on, each block records
         block.read (the wait for its segment's end), block.segment, the
         spans of PipelinedDecoder.submit and its fetch, and block.finish."""
-        ch = self.channelizer
-        per, pad_val = RAW_FMT[fmt]
-        p_in, p_out = ch.p_in, ch.p_out
-        lmarg_p, _rmarg_p, core_p, total_p = stream_geometry(
-            p_in, p_out, self.cfg.fs, self.cfg.max_symbols, block_seconds,
-            align=32 if self.cfg.use_pallas else 1)
-        lmarg_dec, core_dec = lmarg_p * p_out, core_p * p_out
-        items_p = p_in * per                 # raw array items per period
+        plan = _BlockPlan(self, fmt, block_seconds)
         reader = RawReader(source, fmt)
         # a block is fed once a byte of its core has been read
-        core_bytes = core_p * items_p * reader.dtype.itemsize
+        core_bytes = plan.core_p * plan.items_p * reader.dtype.itemsize
 
         # rolling window: starts with the zero-history left margin
-        win = np.full(lmarg_p * items_p, pad_val, dtype=reader.dtype)
-        win_base = -lmarg_p * items_p        # absolute item index of win[0]
+        win_base = plan.bounds(0)[0]         # absolute item index of win[0]
+        win = np.full(-win_base, plan.pad_val, dtype=reader.dtype)
         prev_end: dict[int, int] = {}
         spans, metrics = self.spans, self.metrics
-
-        def finish(cands, i, block):
-            if metrics is not None:
-                total_dec = (reader.items // items_p) * p_out
-                metrics.decimated_samples += len(self.f_offsets) * max(
-                    0, min(core_dec, total_dec - i * core_dec))
-            with timed(spans, "block.finish", block):
-                return self._finish(cands, t_offset=i * core_dec,
-                                    prev_end=prev_end)
-
-        pd = PipelinedDecoder(self, fmt=fmt, core_start=lmarg_dec,
-                              core_len=core_dec)
+        pd = PipelinedDecoder(self, fmt=fmt, core_start=plan.lmarg_dec,
+                              core_len=plan.core_dec)
         try:
             i = 0
             while True:
-                seg_lo = (i * core_p - lmarg_p) * items_p
-                seg_hi = seg_lo + total_p * items_p
+                seg_lo, seg_hi = plan.bounds(i)
                 block = None
                 t_seg = time.monotonic_ns()
                 if not reader.eof:
@@ -632,8 +638,8 @@ class Pipeline:
                         break
                     need = seg_hi - (win_base + len(win))
                     if need > 0:
-                        win = np.concatenate(
-                            [win, np.full(need, pad_val, dtype=reader.dtype)])
+                        win = np.concatenate([win, np.full(
+                            need, plan.pad_val, dtype=reader.dtype)])
                 seg = win[seg_lo - win_base: seg_hi - win_base]
                 if spans is not None:
                     if block is None:
@@ -649,9 +655,10 @@ class Pipeline:
                     metrics.live_result_wait_s += time.perf_counter() - t_wait
                     metrics.live_blocks += 1
                 (cands,) = done
-                yield finish(cands, i, block)
+                yield self._finish_block(plan, cands, i, block, reader.items,
+                                         prev_end)
                 i += 1
-                keep_from = (i * core_p - lmarg_p) * items_p
+                keep_from = plan.bounds(i)[0]
                 win = win[keep_from - win_base:]
                 win_base = keep_from
         finally:
@@ -668,7 +675,7 @@ class Pipeline:
         y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
         c, t = y.shape[:2]
         lmargin = HALO_LEFT
-        rmargin = 24 + 8 * self.cfg.max_symbols
+        rmargin = right_margin(self.cfg.max_symbols)
         if core_len is None:
             core_len = max(8400, min(t, 4 * 84000))
         prev_end = {ci: -1 for ci in range(c)}
@@ -682,6 +689,20 @@ class Pipeline:
             if self.metrics is not None:
                 self.metrics.decimated_samples += c * min(core_len, t - i)
             yield self._finish(cands, t_offset=i, prev_end=prev_end)
+
+    def _finish_block(self, plan: _BlockPlan, cands: list[dict], i: int,
+                      block: int | None, items: int,
+                      prev_end: dict[int, int]) -> list[DecodedBurst]:
+        """Block i of a fused stream over a capture of `items` raw items:
+        count the decimated samples it owns, then _finish under
+        block.finish."""
+        if self.metrics is not None:
+            self.metrics.decimated_samples += len(self.f_offsets) * plan.owned(
+                i, items)
+        with timed(None if block is None else self.spans, "block.finish",
+                   block):
+            return self._finish(cands, t_offset=i * plan.core_dec,
+                                prev_end=prev_end)
 
     def _finish(self, cands: list[dict], t_offset: int,
                 prev_end: dict[int, int] | None = None) -> list[DecodedBurst]:
@@ -719,23 +740,23 @@ class Pipeline:
 
 
 class PipelinedDecoder:
-    """Overlapped dispatch and fetch for the streaming path.
+    """Overlapped dispatch and fetch for the fused streaming routes.
 
-    submit() enqueues a block's device program and, on a CUDA device, an
-    asynchronous copy of its packed rows into pinned host memory (a buffer
-    of its own, alive until a fetch thread has unpacked it) between two
-    timing events; `workers` fetch threads each take a block, wait on its
-    last event and unpack, so the host finishes block i while the card
-    runs block i+1.  Up to `depth` blocks (default workers + 1) wait for
-    a fetch thread; submit() blocks while that many do.  On the CPU the
+    submit() enqueues a block's device program (Pipeline.dispatch_fused)
+    and, on a CUDA device, an asynchronous copy of its packed rows into
+    pinned host memory (a buffer of its own, alive until the fetch thread
+    has unpacked it) between two timing events; one fetch thread takes
+    the blocks in turn, waits on each one's last event and unpacks, so the
+    host finishes block i while the card runs block i+1.  Up to two blocks
+    wait for the fetch thread; submit() blocks on a third.  On the CPU the
     program runs synchronously in submit().  Results come back in
-    submission order, whichever thread fetched them.
+    submission order.
 
     Spans (while pipe.spans is on and submit() is given the block's
     number): block.dispatch (with block.upload and the stage.* spans of
-    dispatch_fused inside), block.queue (the wait for a free fetch slot),
-    and on the fetch thread block.unpack and block.ready (zero length: the
-    result is stored for the consumer).
+    dispatch_fused inside), block.queue (the wait for a free place before
+    the fetch thread), and on the fetch thread block.unpack and
+    block.ready (zero length: the result is handed to the consumer).
 
     Usage:
         pd = PipelinedDecoder(pipe)
@@ -749,32 +770,25 @@ class PipelinedDecoder:
     overlap, takes every result after each submit() with wait_all().
     """
 
-    def __init__(self, pipe: Pipeline, depth: int | None = None,
-                 fmt: str = "cu8", workers: int = 1, core_start: int = 0,
+    def __init__(self, pipe: Pipeline, fmt: str = "cu8", core_start: int = 0,
                  core_len: int = 0):
         self.pipe = pipe
-        self.workers = max(1, workers)
-        self.depth = depth if depth is not None else self.workers + 1
         self.fmt = fmt
         self.core_start = core_start
         self.core_len = core_len
-        self._q = queue.Queue(maxsize=self.depth)
-        self._lock = threading.Condition()
-        self._results: dict[int, object] = {}
-        self._seq_in = 0                   # blocks dispatched
-        self._seq_out = 0                  # blocks yielded
-        self._stopping = False             # sentinels posted
-        self._threads = [threading.Thread(target=self._fetch_loop, daemon=True)
-                         for _ in range(self.workers)]
-        for th in self._threads:
-            th.start()
+        self._todo = queue.Queue(maxsize=2)    # blocks for the fetch thread
+        self._done = queue.Queue()             # their results, in order
+        self._pending = 0                      # dispatched, not handed out
+        self._stopping = False                 # sentinel posted
+        self._thread = threading.Thread(target=self._fetch_loop, daemon=True)
+        self._thread.start()
 
     def _fetch_loop(self):
         while True:
-            item = self._q.get()
+            item = self._todo.get()
             if item is None:
                 return
-            seq, host, events, t_start, block = item
+            host, events, t_start, block = item
             spans = None if block is None else self.pipe.spans
             try:
                 if events is not None:
@@ -784,28 +798,22 @@ class PipelinedDecoder:
                     device_s = (events[0].elapsed_time(events[1]) / 1e3
                                 if events is not None
                                 else time.perf_counter() - t_start)
-                    self.pipe._observe_packed(buf, device_s)
+                    self.pipe.observe_packed(buf, device_s)
                     r = unpack_results(buf)
             except Exception as e:          # surfaced to the consumer
                 r = e
-            with self._lock:
-                self._results[seq] = r
-                t_ready = time.monotonic_ns()
-                self._lock.notify_all()
+            t_ready = time.monotonic_ns()
+            self._done.put(r)
             if spans is not None:
                 spans.add("block.ready", block, t_ready, t_ready)
 
     def _emit_ready(self, wait: bool = False):
-        while True:
-            with self._lock:               # never yield while holding this
-                if self._seq_out >= self._seq_in:
-                    return
-                while self._seq_out not in self._results:
-                    if not wait:
-                        return
-                    self._lock.wait()
-                r = self._results.pop(self._seq_out)
-                self._seq_out += 1
+        while self._pending:
+            try:
+                r = self._done.get(block=wait)
+            except queue.Empty:
+                return
+            self._pending -= 1
             if isinstance(r, Exception):
                 raise r
             yield r
@@ -826,8 +834,8 @@ class PipelinedDecoder:
                 events = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                 events[0].record(stream)
-            dev = dispatch_fused(self.pipe, raw, self.fmt, self.core_start,
-                                 self.core_len, block)
+            dev = self.pipe.dispatch_fused(raw, self.fmt, self.core_start,
+                                           self.core_len, block)
             if events is not None:
                 host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
                 host.copy_(dev, non_blocking=True)
@@ -835,27 +843,24 @@ class PipelinedDecoder:
             else:
                 host = dev
         with timed(spans, "block.queue", block):
-            self._q.put((self._seq_in, host, events, t_start, block))
-        with self._lock:
-            self._seq_in += 1
+            self._todo.put((host, events, t_start, block))
+        self._pending += 1
         yield from self._emit_ready(wait=False)
 
     def _stop(self):
         if not self._stopping:
             self._stopping = True
-            for _ in self._threads:
-                self._q.put(None)
+            self._todo.put(None)
 
     def close(self):
-        """Stop and join the fetch threads; idempotent.  Every exit path
+        """Stop and join the fetch thread; idempotent.  Every exit path
         must reach this (the streaming generators do it in a finally)."""
         self._stop()
-        for th in self._threads:
-            th.join(timeout=300)
+        self._thread.join(timeout=300)
 
     def wait_all(self) -> list:
         """Every result dispatched and not yet handed out, in submission
-        order, waiting for each; the fetch threads stay up.  The live route
+        order, waiting for each; the fetch thread stays up.  The live route
         calls it after each submit(), so that a block comes out before the
         stream is read on; the file route keeps the overlap of submit() and
         drain()."""

@@ -61,9 +61,10 @@ import numpy as np
 import torch
 
 from . import stimulus
-from ._tables import RAW_FMT, PipelineConfig, stream_geometry
+from ._tables import PipelineConfig
 from .kernel_times import card_string, event_ms
-from .pipeline import STAGES, Pipeline, channelize_raw, wideband_raw_decode
+from .pipeline import (STAGES, Pipeline, _BlockPlan, channelize_raw,
+                       wideband_raw_decode)
 
 FS = 2_000_000
 ROUTES = {
@@ -83,23 +84,13 @@ def block_segment(pipe: Pipeline, raw: np.ndarray, block_seconds: float,
     """Block i of stream_wideband_u8's cut of the capture raw: (segment
     with its margins, padded beyond the capture as the stream pads it;
     core_start; core_len), the last two in decimated samples."""
-    cfg, ch = pipe.cfg, pipe.channelizer
-    per, pad_val = RAW_FMT[fmt]
-    lmarg_p, _r, core_p, total_p = stream_geometry(
-        ch.p_in, ch.p_out, cfg.fs, cfg.max_symbols, block_seconds,
-        align=32 if cfg.use_pallas else 1)
-    lo = (i * core_p - lmarg_p) * ch.p_in * per
-    hi = lo + total_p * ch.p_in * per
-    seg = np.full(hi - lo, pad_val, dtype=raw.dtype)
-    s_lo, s_hi = max(lo, 0), min(hi, len(raw))
-    if s_hi > s_lo:
-        seg[s_lo - lo: s_hi - lo] = raw[s_lo:s_hi]
-    return seg, lmarg_p * ch.p_out, core_p * ch.p_out
+    plan = _BlockPlan(pipe, fmt, block_seconds)
+    return plan.segment(raw, i), plan.lmarg_dec, plan.core_dec
 
 
 def block_program(pipe: Pipeline, raw: np.ndarray, block_seconds: float):
     """program(mark=None): the device program of block 1 of the cu8
-    stream raw, staged on the pipeline's device, as dispatch_fused runs
+    stream raw, staged on the pipeline's device, as Pipeline.dispatch_fused runs
     it; and the block's samples."""
     cfg, ch = pipe.cfg, pipe.channelizer
     seg, core_start, core_len = block_segment(pipe, raw, block_seconds, 1)
